@@ -4,13 +4,21 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``cor_asv_ann_tpu_torch/csrc`` into
 ``build/kernels/``, holds each kernel against its plain PyTorch version
-at the shapes the serving path gives it, drives greedy serving of the
-bundled d2/w512 model (``testmodels/flagship.d2.w512.synthetic.h5``)
-through ``Sequence2Sequence.correct_lines`` at float32 and bfloat16,
-checks the decoded bytes against the repo's goldens, shows that the
-serving path launched both kernels, and times the kernels. Any failed
-check raises, so the script exits non-zero. It imports nothing of JAX
-and nothing of the JAX package.
+at the shapes the main paths give it, and drives both paths of the port:
+
+- greedy serving of the bundled d2/w512 model
+  (``testmodels/flagship.d2.w512.synthetic.h5``) through
+  ``Sequence2Sequence.correct_lines`` at float32 and bfloat16, checked
+  against the repo's goldens (the decode-loop and LSTM-step kernels);
+- training of a d2/w512 model at batch 256 on a synthetic corpus through
+  ``train_step`` and ``Sequence2Sequence.train`` in float32 and bfloat16,
+  with and without masked padding, then saving the model, loading it
+  back and serving from the file (the LSTM scan kernels, forward and
+  backward).
+
+It shows that each path launched its kernels, and times the kernels.
+Any failed check raises, so the script exits non-zero. It imports
+nothing of JAX and nothing of the JAX package.
 
 Output: the card's name and power limit, one JSON line ``{"kernels":
 [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -21,6 +29,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -75,6 +84,10 @@ def load_model(device, compute='float32', filename=FLAGSHIP):
     return s2s
 
 
+def _dtype_name(dt):
+    return str(dt).split('.')[-1]
+
+
 def phase_k2(torch, dev):
     """K2 against its plain version at the decoder's shapes."""
     from cor_asv_ann_tpu_torch.ops.lstm import lstm_step
@@ -104,9 +117,9 @@ def phase_k2(torch, dev):
                                                **tol)
                 err = max((hk.float() - hp.float()).abs().max().item(),
                           (ck.float() - cp.float()).abs().max().item())
-                errs[(str(dt).split('.')[-1], B, D)] = err
+                errs[(_dtype_name(dt), B, D)] = err
                 print('K2 %-8s B=%-3d D=%-4d max|kernel-plain| = %.3g'
-                      % (str(dt).split('.')[-1], B, D, err))
+                      % (_dtype_name(dt), B, D, err))
     return errs
 
 
@@ -203,7 +216,303 @@ def main_path(torch, dev, goldens, corpus):
     print('bf16 flagship, 16 lines: served')
 
 
-def lines_per_s(torch, s2s, lines, reps=3):
+def _scan_inputs(torch, dev, dt, T, B, N, seed):
+    gen = torch.Generator().manual_seed(seed)
+    zx = torch.randn(T, B, 4 * N, generator=gen)
+    R = torch.randn(N, 4 * N, generator=gen) / N ** 0.5
+    h0 = torch.randn(B, N, generator=gen) * 0.2
+    c0 = torch.randn(B, N, generator=gen) * 0.2
+    return [t.to(dt).to(dev) for t in (zx, R, h0, c0)]
+
+
+def _shift(torch, hs, h0, reverse):
+    return (torch.cat([hs[1:], h0[None]]) if reverse
+            else torch.cat([h0[None], hs[:-1]]))
+
+
+SCAN_SHAPES = ((128, 256, 512), (7, 5, 40))     # (T, B, N)
+
+
+def scan_tolerance(torch, dt):
+    """float32: summation order and expf/tanhf against PyTorch's; bf16:
+    an ulp of a gate carried along the sweep (the JAX package's bar for
+    its scan kernel, 2e-2)."""
+    return (dict(atol=2e-5, rtol=1e-5) if dt == torch.float32
+            else dict(atol=2e-2, rtol=2e-2))
+
+
+def phase_k4(torch, dev):
+    """K4 against its plain version, both dtypes, both directions."""
+    from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = scan_tolerance(torch, dt)
+        for T, B, N in SCAN_SHAPES:
+            for reverse in (False, True):
+                args = _scan_inputs(torch, dev, dt, T, B, N, 2)
+                got = lsk.lstm_scan_fwd(*args, reverse)
+                torch.cuda.synchronize()
+                want = lsk.lstm_scan_fwd_reference(*args, reverse)
+                err = 0.0
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g.float(), w.float(), **tol)
+                    err = max(err, (g.float() - w.float()).abs().max().item())
+                errs[(_dtype_name(dt), T, B, N, reverse)] = err
+                print('K4 %-8s T=%-3d B=%-3d N=%-3d reverse=%d max|kernel-'
+                      'plain| = %.3g (atol %g rtol %g)'
+                      % (_dtype_name(dt), T, B, N, reverse, err,
+                         tol['atol'], tol['rtol']))
+    return errs
+
+
+def phase_k5(torch, dev):
+    """K5 against its plain version on the states the plain K4 saved,
+    then LstmScan against autograd through the plain lstm_scan."""
+    from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+    from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = scan_tolerance(torch, dt)
+        for T, B, N in SCAN_SHAPES:
+            for reverse in (False, True):
+                zx, R, h0, c0 = _scan_inputs(torch, dev, dt, T, B, N, 3)
+                hs, cs, _, _ = lsk.lstm_scan_fwd_reference(zx, R, h0, c0,
+                                                           reverse)
+                hprev = _shift(torch, hs, h0, reverse)
+                cprev = _shift(torch, cs, c0, reverse)
+                gen = torch.Generator().manual_seed(4)
+                # cotangents of the size a mean loss hands back, so the
+                # carried gradients stay in range over 128 steps
+                g_hs, g_hT, g_cT = (
+                    (torch.randn(*shape, generator=gen) * 0.1).to(dt).to(dev)
+                    for shape in ((T, B, N), (B, N), (B, N)))
+                args = (g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse)
+                got = lsk.lstm_scan_bwd(*args)
+                torch.cuda.synchronize()
+                want = lsk.lstm_scan_bwd_reference(*args)
+                err = 0.0
+                for g, w in zip(got, want):
+                    # relative to the gradient's own scale
+                    scale = max(1.0, w.float().abs().max().item())
+                    torch.testing.assert_close(g.float() / scale,
+                                               w.float() / scale, **tol)
+                    err = max(err, ((g.float() - w.float()).abs().max()
+                                    / scale).item())
+                errs[(_dtype_name(dt), T, B, N, reverse)] = err
+                print('K5 %-8s T=%-3d B=%-3d N=%-3d reverse=%d max|kernel-'
+                      'plain|/scale = %.3g (atol %g rtol %g)'
+                      % (_dtype_name(dt), T, B, N, reverse, err,
+                         tol['atol'], tol['rtol']))
+    # the autograd.Function against autograd through the plain scan, f32
+    B, T, D, N = 64, 32, 512, 512
+    gen = torch.Generator().manual_seed(5)
+
+    def leaf(*shape, scale=1.0):
+        return ((torch.randn(*shape, generator=gen) * scale).to(dev)
+                .requires_grad_())
+
+    xs, h0, c0 = leaf(B, T, D), leaf(B, N, scale=.2), leaf(B, N, scale=.2)
+    w = {'kernel': leaf(D, 4 * N, scale=D ** -0.5),
+         'recurrent_kernel': leaf(N, 4 * N, scale=N ** -0.5),
+         'bias': leaf(4 * N, scale=.1)}
+    wo, wh, wc = (leaf(*shape).detach() / (B * T) for shape in
+                  ((B, T, N), (B, N), (B, N)))
+    leaves = [xs, h0, c0, *w.values()]
+    for reverse in (False, True):
+        def grads(fn):
+            out, h, c = fn(xs, w, h0, c0, reverse=reverse)
+            return torch.autograd.grad(
+                (out * wo).sum() + (h * wh).sum() + (c * wc).sum(), leaves)
+        worst = 0.0
+        for g, r in zip(grads(lsk.lstm_scan_fused), grads(lstm_scan)):
+            scale = r.abs().max().item()
+            torch.testing.assert_close(g / scale, r / scale, rtol=2e-4,
+                                       atol=2e-5)
+            worst = max(worst, ((g - r).abs().max() / scale).item())
+        print('LstmScan vs autograd through lstm_scan, f32, reverse=%d: '
+              'max gradient diff / scale = %.3g (rtol 2e-4 atol 2e-5)'
+              % (reverse, worst))
+    return errs
+
+
+def write_corpus(path, n):
+    from cor_asv_ann_tpu_torch.utils.synthdata import make_pairs
+    with open(path, 'w', encoding='utf-8') as f:
+        for noisy, clean in make_pairs(n, seed=7):
+            f.write('%s\t%s\n' % (noisy, clean))
+
+
+def new_trainer(dev, data, keras_padding, compute):
+    from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
+    s2s = Sequence2Sequence(device=dev)
+    s2s.width, s2s.depth, s2s.batch_size = 512, 2, 256
+    s2s.keras_padding = keras_padding
+    s2s.train_compute = compute
+    s2s.map_files([data])
+    s2s.configure()
+    return s2s
+
+
+def train_path(torch, dev, tmp, launches_of):
+    """The training path at width 512, depth 2, batch 256: train_steps in
+    float32 and bfloat16 under both padding modes, then train() for one
+    epoch, save(), reload and serve from the file. Returns per-regime
+    step times, peak memory and launch counts."""
+    import numpy as np
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
+                                                     tree_map)
+    from cor_asv_ann_tpu_torch.utils import io_h5
+    from cor_asv_ann_tpu_torch.utils.data import gen_line_batches
+    data = os.path.join(tmp, 'train.tsv')
+    write_corpus(data, 768)
+    report = {}
+    steps = 5
+    for keras_padding in (False, True):
+        # what the configuration implies: with masked padding only the
+        # lower decoder layer's scan is unmasked; without, the two
+        # directions of encoder layer 1, encoder layer 2 and that one
+        scans = 4 if keras_padding else 1
+        for compute in ('float32', 'bfloat16'):
+            s2s = new_trainer(dev, data, keras_padding, compute)
+            sources, confs, targets, _ = next(gen_line_batches(
+                [data], s2s.batch_size, repeat=False))
+            batch = T._vectorize(s2s.mapping, sources, targets, confs,
+                                 s2s.logger)
+            params = tree_map(lambda t: t.requires_grad_(),
+                              params_from_numpy(s2s.params, dev))
+            opt = T.make_optimizer(params, s2s.learning_rate)
+            gen = torch.Generator().manual_seed(0)
+            compute_dtype = 'bfloat16' if compute == 'bfloat16' else None
+            # the loss that has to fall is the batch's evaluation loss
+            # (no dropout noise, float32 masters) before and after
+            eval_before = float(T.eval_step(params, s2s.config, *batch))
+            before = launches_of()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = T.train_step(params, opt, s2s.config, *batch, gen,
+                                    compute_dtype=compute_dtype)
+                losses.append(float(loss))
+                times.append((time.perf_counter() - t0) * 1e3)
+            after = launches_of()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            eval_after = float(T.eval_step(params, s2s.config, *batch))
+            name = '%s_%s' % ('keras_padding' if keras_padding
+                              else 'mask_padding', compute)
+            check(all(np.isfinite(losses + [eval_before, eval_after])),
+                  '%s: loss not finite: %s' % (name, losses))
+            check(eval_after < eval_before, '%s: loss did not fall: %s -> '
+                  '%s' % (name, eval_before, eval_after))
+            per_step = {k: (after[k] - before[k]) / steps for k in after}
+            check(per_step == {'lstm_scan_fwd': scans,
+                               'lstm_scan_bwd': scans},
+                  '%s: launches per step %s, expected %d of each'
+                  % (name, per_step, scans))
+            report[name] = dict(
+                step_ms=min(times[1:]), first_step_ms=times[0],
+                peak_gib=peak, eval_loss_before=eval_before,
+                eval_loss_after=eval_after, train_losses=losses,
+                launches_per_step=per_step,
+                shape='B=%d T=%d Td=%d' % (batch[0].shape[0],
+                                           batch[0].shape[1],
+                                           batch[1].shape[1]))
+            print('train_step %-22s %s: %.1f ms/step (first %.1f), peak '
+                  '%.2f GiB, eval loss %.4f -> %.4f, K4/K5 launches per '
+                  'step %d/%d' % (name, report[name]['shape'],
+                                  report[name]['step_ms'], times[0], peak,
+                                  eval_before, eval_after, scans, scans))
+    # the whole loop: one short epoch, model file out, served back in
+    s2s = new_trainer(dev, data, False, 'bfloat16')
+    s2s.epochs = 1
+    history = s2s.train([data], checkpoint_dir=tmp)
+    check(s2s.status == 2 and len(history['loss']) == 1
+          and np.isfinite(history['loss'][0])
+          and np.isfinite(history['val_loss'][0]),
+          'train() did not finish an epoch: %s' % history)
+    model = os.path.join(tmp, 'trained.h5')
+    s2s.save(model)
+    served = load_model(dev, filename=model)
+    config, mapping = io_h5.load_config(model)
+    check(config.width == 512 and config.depth == 2
+          and mapping.c2i == s2s.mapping.c2i, 'saved config differs')
+    lines = [src + '\n' for src in sources[:8]]
+    out_file, _, sc_file, _ = served.correct_lines(list(lines),
+                                                   return_alignments=False)
+    out_mem, _, sc_mem, _ = s2s.correct_lines(list(lines),
+                                              return_alignments=False)
+    check(out_file == out_mem and sc_file == sc_mem,
+          'serving from the saved file differs from serving the trained '
+          'model')
+    check(len(out_file) == 8 and all(np.isfinite(sc_file)),
+          'serving from the saved file gave malformed output')
+    print('train(): 1 epoch, loss %.4f val_loss %.4f; saved, reloaded and '
+          'served %d lines from the file, equal to the model in memory'
+          % (history['loss'][0], history['val_loss'][0], len(out_file)))
+    return report
+
+
+def scan_times(torch, dev, dt):
+    """K4 and K5 at the flagship shape: kernel, plain version, bound and
+    the cuDNN LSTM as the library yardstick."""
+    from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+    T, B, N = SCAN_SHAPES[0]
+    zx, R, h0, c0 = _scan_inputs(torch, dev, dt, T, B, N, 6)
+    hs, cs, _, _ = lsk.lstm_scan_fwd(zx, R, h0, c0)
+    hprev, cprev = _shift(torch, hs, h0, False), _shift(torch, cs, c0, False)
+    g = torch.full_like(hs, 1e-3)
+    bwd_args = (g, g[0], g[0], zx, R, hprev, cprev, cs)
+    size = zx.element_size()
+    name = _dtype_name(dt)
+    out = {}
+    out['fwd_ms'] = cuda_time_ms(lambda: lsk.lstm_scan_fwd(zx, R, h0, c0), 5)
+    out['fwd_plain_ms'] = cuda_time_ms(
+        lambda: lsk.lstm_scan_fwd_reference(zx, R, h0, c0), 2)
+    out['bwd_ms'] = cuda_time_ms(lambda: lsk.lstm_scan_bwd(*bwd_args), 5)
+    out['bwd_plain_ms'] = cuda_time_ms(
+        lambda: lsk.lstm_scan_bwd_reference(*bwd_args), 2)
+    product = 2 * T * B * N * 4 * N
+    # K4 reads zx, R, h0, c0 and writes hs, cs, hT, cT
+    fwd_bytes = size * (T * B * 4 * N + N * 4 * N + 2 * T * B * N
+                        + 4 * B * N)
+    out['fwd_bound_ms'], out['fwd_bound_by'] = bound(fwd_bytes, product,
+                                                     name)
+    # K5 reads g_hs, zx, hprev, cprev, cs, R and the two state cotangents,
+    # writes dzx and the float32 dh0, dc0; two products per step
+    bwd_bytes = size * (4 * T * B * N + 2 * T * B * 4 * N + N * 4 * N
+                        + 2 * B * N) + 4 * 2 * B * N
+    out['bwd_bound_ms'], out['bwd_bound_by'] = bound(bwd_bytes, 2 * product,
+                                                     name)
+    # torch.nn.LSTM (cuDNN) with the same recurrent weights: it includes
+    # the input projection (D = N) that the kernels leave outside, and
+    # its backward also forms both weight gradients
+    lstm = torch.nn.LSTM(N, N).to(dev).to(dt)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(R.t())
+    x = torch.randn(T, B, N, device=dev).to(dt).requires_grad_()
+    state = (h0[None], c0[None])
+    with torch.no_grad():
+        out['fwd_library_ms'] = cuda_time_ms(lambda: lstm(x, state), 5)
+    y, _ = lstm(x, state)
+    leaves = [x, *lstm.parameters()]
+    out['bwd_library_ms'] = cuda_time_ms(
+        lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), 5)
+    print('K4 %s T=%d B=%d N=%d: kernel %.3f ms, plain %.3f ms, cuDNN LSTM '
+          'forward (with the input projection) %.3f ms, bound %.4f ms (%s)'
+          % (name, T, B, N, out['fwd_ms'], out['fwd_plain_ms'],
+             out['fwd_library_ms'], out['fwd_bound_ms'],
+             out['fwd_bound_by']))
+    print('K5 %s T=%d B=%d N=%d: kernel %.3f ms, plain %.3f ms, cuDNN LSTM '
+          'backward (with both weight gradients) %.3f ms, bound %.4f ms '
+          '(%s)' % (name, T, B, N, out['bwd_ms'], out['bwd_plain_ms'],
+                    out['bwd_library_ms'], out['bwd_bound_ms'],
+                    out['bwd_bound_by']))
+    return out
+
+
+def lines_per_s(torch, s2s, lines, reps=2):
     s2s.correct_lines(list(lines), return_alignments=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -225,6 +534,7 @@ def main():
     sys.path.insert(0, ROOT)
     from cor_asv_ann_tpu_torch.ops import _build
     from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
+    from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
     from cor_asv_ann_tpu_torch.ops import lstm_step_kernel as k2
     from cor_asv_ann_tpu_torch.ops.lstm import lstm_step
     dev = torch.device('cuda')
@@ -250,24 +560,45 @@ def main():
     k2_errs = phase_k2(torch, dev)
     # 3. K1 against the plain bf16 decode and its plain twin
     k1_err, k1_args = phase_k1(torch, dev, goldens, corpus)
+    # K4 and K5 against their plain versions
+    k4_errs = phase_k4(torch, dev)
+    k5_errs = phase_k5(torch, dev)
 
-    # 4 + 5. the main path, with every launch count set to 0 just before
-    dlk.decode_loop.launches = 0
-    k2.lstm_step_fused.launches = 0
+    # 4 + 5. the main paths, each with every launch count set to 0 just
+    # before it and read just after it
+    wrappers = {'decode_loop': dlk.decode_loop,
+                'lstm_step': k2.lstm_step_fused,
+                'lstm_scan_fwd': lsk.lstm_scan_fwd,
+                'lstm_scan_bwd': lsk.lstm_scan_bwd}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    reset_counts()
     main_path(torch, dev, goldens, corpus)
-    launches = {'decode_loop': dlk.decode_loop.launches,
-                'lstm_step': k2.lstm_step_fused.launches}
+    launches = {k: wrappers[k].launches for k in ('decode_loop',
+                                                  'lstm_step')}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_report = train_path(
+            torch, dev, tmp,
+            lambda: {k: wrappers[k].launches
+                     for k in ('lstm_scan_fwd', 'lstm_scan_bwd')})
+    launches.update({k: wrappers[k].launches
+                     for k in ('lstm_scan_fwd', 'lstm_scan_bwd')})
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
-          'a kernel of the main path was not launched: %s' % launches)
+          'a kernel of the main paths was not launched: %s' % launches)
+    print('train_path: %s' % json.dumps(train_report))
 
     # 6. times
     # K1 at B=16, T=64 (the serving regime it is dispatched for)
     idx, _, length, _ = dlk.decode_loop(*k1_args)
     steps = int(length.sum())
-    k1_ms = cuda_time_ms(lambda: dlk.decode_loop(*k1_args), 20)
+    k1_ms = cuda_time_ms(lambda: dlk.decode_loop(*k1_args), 10)
     k1_plain_ms = cuda_time_ms(lambda: dlk.decode_loop_reference(*k1_args),
-                               3)
+                               2)
     attended, u = k1_args[0], k1_args[1]
     B, T, W = u.shape
     A = attended.shape[2]
@@ -325,6 +656,11 @@ def main():
     print('K2 bf16 B=%d D=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms '
           '(%s)' % (B2, D2, k2b_ms, k2b_plain_ms, k2b_bound, k2b_by))
 
+    # K4 and K5 at T=128, B=256, N=512, the shape the flagship's training
+    # batch gives them; bfloat16 goes into the kernels line
+    scan_f32 = scan_times(torch, dev, torch.float32)
+    scan_bf16 = scan_times(torch, dev, torch.bfloat16)
+
     # serving throughput through correct_lines
     lines256 = (corpus * 3)[:256]
     f32 = load_model(dev)
@@ -352,7 +688,28 @@ def main():
                              if k[0] == 'float32'),
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
              bound_by=k2_by, library_ms=k2_lib_ms),
+        dict(name='lstm_scan_fwd', route='cuda',
+             source='cor_asv_ann_tpu_torch/csrc/lstm_scan.cu',
+             replaces='cor_asv_ann_tpu/ops/pallas_lstm_train.py:55',
+             launches=launches['lstm_scan_fwd'],
+             max_abs_err=max(v for k, v in k4_errs.items()
+                             if k[0] == 'bfloat16'),
+             ms=scan_bf16['fwd_ms'], plain_ms=scan_bf16['fwd_plain_ms'],
+             bound_ms=scan_bf16['fwd_bound_ms'],
+             bound_by=scan_bf16['fwd_bound_by'],
+             library_ms=scan_bf16['fwd_library_ms']),
+        dict(name='lstm_scan_bwd', route='cuda',
+             source='cor_asv_ann_tpu_torch/csrc/lstm_scan.cu',
+             replaces='cor_asv_ann_tpu/ops/pallas_lstm_train.py:91',
+             launches=launches['lstm_scan_bwd'],
+             max_abs_err=max(v for k, v in k5_errs.items()
+                             if k[0] == 'bfloat16'),
+             ms=scan_bf16['bwd_ms'], plain_ms=scan_bf16['bwd_plain_ms'],
+             bound_ms=scan_bf16['bwd_bound_ms'],
+             bound_by=scan_bf16['bwd_bound_by'],
+             library_ms=scan_bf16['bwd_library_ms']),
     ]
+    print('scan kernels float32: %s' % json.dumps(scan_f32))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,11 @@
-"""High-level serving API mirroring the reference `Sequence2Sequence` class.
+"""High-level model API mirroring the reference `Sequence2Sequence` class.
 
-Port of the serving surface of the JAX package's ``models/api.py``:
-configure / load_config / load_weights / correct_lines / correct_stream /
-predict / decode_batch_greedy, greedy decoding only. Beam search, training
-and evaluation come in later slices (ROADMAP.md Queue A).
+Port of the JAX package's ``models/api.py``: configure / load_config /
+load_weights / load_transfer_weights / save / map_files / train /
+correct_lines / correct_stream / predict / decode_batch_greedy, greedy
+decoding only. Beam search and evaluation are not ported yet
+(ROADMAP.md Queue A). ``self.params`` is the float32 numpy parameter
+tree; serving and training copy it to tensors on ``self.device``.
 
 Decode batches are padded to power-of-two batch buckets and length
 buckets (utils/data.py:LENGTH_BUCKETS). The dispatch rule of the JAX
@@ -18,11 +20,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..lib.alignment import Alignment
 from ..ops.decode_loop_kernel import (decode_greedy_fused,
                                       fused_greedy_supported)
 from ..utils import io_h5
 from ..utils.data import (CharMapping, GAP, gen_line_batches,
-                          lines_to_index_batch, vectorize_lines)
+                          lines_to_index_batch, scan_files,
+                          vectorize_lines)
 from .config import Seq2SeqConfig, init_params
 from .params import params_from_numpy
 from .seq2seq import decode_greedy, decode_greedy_windowed
@@ -62,7 +66,21 @@ class Sequence2Sequence:
         self.residual_connections = False
         self.deep_bidirectional_encoder = False
         self.bridge_dense = False
+        # training parameters
+        self.epochs = 100
+        self.lm_loss = False
+        self.scheduled_sampling = None
+        # reference-quirk parity for scheduled sampling: feed sampled
+        # lines ZERO teacher input like the reference's uint32-truncated
+        # feedback buffer (models/train.py:_scheduled_sample); default
+        # feeds one-hot greedy outputs (the documented intent)
+        self.keras_sampling = False
         self.dropout = 0.2
+        self.learning_rate = 1e-3  # Keras Adam default (seq2seq.py:496)
+        self.patience = 3           # early-stopping patience (seq2seq.py:619)
+        # training compute dtype: None/'float32' or 'bfloat16' (mixed
+        # precision: bf16 forward/backward, float32 masters)
+        self.train_compute = None
         # inference compute dtype: 'float32' (reference parity) or
         # 'bfloat16' (master weights stay float32)
         self.compute = 'float32'
@@ -73,6 +91,7 @@ class Sequence2Sequence:
         self.fused_decode_min_b = 1
         self.rejection_threshold = 0.3
         self.logger = logger or logging.getLogger(__name__)
+        self.aligner = Alignment(0, logger=self.logger)
         self.config = None
         self.params = None
         self.status = 0
@@ -120,6 +139,56 @@ class Sequence2Sequence:
             self.depth, self.width, self.voc_size, self.device)
         self.status = max(self.status, 1)
 
+    def _reconfigure_for_mapping(self, old_voc_size):
+        """Rebuild after vocabulary growth, transferring embedding rows
+        (reference seq2seq.py:499-525)."""
+        old_params = self.params if self.status >= 2 else None
+        status = self.status
+        self.status = min(self.status, 1)
+        self.params = None
+        self.configure()
+        if old_params is not None:
+            new_params = self.params
+            for key in ('char_embedding',):
+                new_kernel = np.array(new_params[key]['kernel'])
+                old_kernel = np.asarray(old_params[key]['kernel'])
+                new_kernel[:old_voc_size] = old_kernel[:old_voc_size]
+                new_params[key]['kernel'] = new_kernel
+            # all other weights are shape-independent of voc_size
+            for key in ('attention_dense', 'encoder', 'decoder', 'bridge'):
+                if key in old_params:
+                    new_params[key] = old_params[key]
+            self.params = new_params
+            self.status = status
+
+    def map_files(self, filenames, charmap=None):
+        chars, num_lines = scan_files(filenames, charmap=charmap)
+        new_mapping, grew = self.mapping.grow([''.join(chars)])
+        if grew:
+            old_voc = self.voc_size
+            # remap embedding rows from old indices to new
+            old_mapping = self.mapping
+            self.mapping = new_mapping
+            if self.status >= 1:
+                if self.status >= 2 and self.params is not None:
+                    old_kernel = np.asarray(
+                        self.params['char_embedding']['kernel'])
+                    self._reconfigure_for_mapping(0)
+                    kernel = np.array(self.params['char_embedding']['kernel'])
+                    for char, old_idx in old_mapping.c2i.items():
+                        new_idx = self.mapping.get(char)
+                        kernel[new_idx] = old_kernel[old_idx]
+                    self.params['char_embedding']['kernel'] = kernel
+                else:
+                    self._reconfigure_for_mapping(old_voc)
+        return num_lines
+
+    def save(self, filename):
+        if self.status < 2:
+            raise RuntimeError('train or load a model before save')
+        self.logger.info('Saving model under "%s"', filename)
+        io_h5.save_model(filename, self.params, self.config, self.mapping)
+
     def load_config(self, filename):
         config, mapping = io_h5.load_config(filename)
         self.width = config.width
@@ -137,6 +206,24 @@ class Sequence2Sequence:
         self.params = io_h5.load_weights(filename, self.config,
                                          logger=self.logger)
         self.status = 2
+
+    def load_transfer_weights(self, filename):
+        if self.status < 1:
+            raise RuntimeError('configure() the model before '
+                               'load_transfer_weights')
+        if self.depth < 2:
+            raise ValueError('transfer needs a model of depth 2 or more')
+        self.logger.info('Transferring model from "%s"', filename)
+        params, mapping, frozen = io_h5.load_transfer_weights(
+            filename, self.params, self.config, logger=self.logger)
+        if mapping is not None and mapping.c2i != self.mapping.c2i:
+            self.mapping = mapping
+            self.configure()
+            params, _, frozen = io_h5.load_transfer_weights(
+                filename, self.params, self.config, logger=self.logger)
+        self.params = params
+        self.frozen_layers = frozen
+        self.status = 1
 
     # ------------------------------------------------------------------
     # inference
@@ -341,6 +428,25 @@ class Sequence2Sequence:
                                     return_alignments=False):
             yield (fnames, lines_result, scores_result)
 
+    # ------------------------------------------------------------------
+    # reference-surface convenience wrappers (lib/seq2seq.py names)
+
+    def vectorize_lines(self, source_lines, target_lines, conf=None):
+        """Reference-compatible vectorization (seq2seq.py:1020-1119)."""
+        return vectorize_lines(self.mapping, source_lines, target_lines,
+                               confs=conf, logger=self.logger)
+
+    def gen_lines(self, filenames, repeat=False, split=None, train=False,
+                  unsupervised=False, charmap=None):
+        """Reference-compatible line batch generator (seq2seq.py:919)."""
+        def is_bad(src, tgt):
+            self.aligner.set_seqs(src, tgt)
+            return self.aligner.is_bad()
+        return gen_line_batches(
+            filenames, self.batch_size, repeat=repeat, split=split,
+            train=train, unsupervised=unsupervised, charmap=charmap,
+            is_bad=is_bad if train else None)
+
     def decode_batch_greedy(self, encoder_input_data):
         """Reference-compatible greedy batch decode over raw (B, T, V)
         input arrays (seq2seq.py:1215-1286). Returns (texts, probs,
@@ -361,3 +467,13 @@ class Sequence2Sequence:
         probs = [prob[j, :length[j]].tolist() for j in range(idx.shape[0])]
         aligns = [aligns[j, :length[j]] for j in range(idx.shape[0])]
         return texts, probs, score.cpu().numpy().tolist(), aligns
+
+    # training is provided by models/train.py (train_model), bound here
+    # lazily like in the JAX package
+    def train(self, filenames, val_filenames=None, checkpoint_dir='.',
+              resume=False):
+        """Train on `filenames` on ``self.device`` (reference
+        seq2seq.py:590-649); returns the loss history."""
+        from .train import train_model
+        return train_model(self, filenames, val_filenames,
+                           checkpoint_dir=checkpoint_dir, resume=resume)

@@ -1,10 +1,16 @@
-"""Seq2seq inference core: encoder, decoder step, greedy decoders.
+"""Seq2seq core: encoder, decoder step, greedy decoders, teacher forcing.
 
-Port of the inference half of the JAX package's ``models/seq2seq.py``
-(reference lib/seq2seq.py:190-489): a stacked (bi)LSTM encoder, a forward
-LSTM decoder with local additive attention on top, and a weight-tied
-softmax output. Functions take (params, config, tensors) and run on the
-device the tensors live on.
+Port of the JAX package's ``models/seq2seq.py`` (reference
+lib/seq2seq.py:190-489): a stacked (bi)LSTM encoder, a forward LSTM
+decoder with local additive attention on top, and a weight-tied softmax
+output. Functions take (params, config, tensors) and run on the device
+the tensors live on. Training uses the same decoder teacher-forced
+(`forward_teacher`), differentiated by autograd: its unmasked LSTM scans
+go through the whole-sequence scan kernels (`_train_scan`), its top
+attention layer through the dense per-step body. The windowed teacher
+body, the hand-written teacher backward and the fused teacher kernel of
+the JAX package are not ported yet; like the JAX package with those
+switched off, long lines train dense too.
 
 Greedy contract (reference ``decode_batch_greedy``, seq2seq.py:1215-1286):
 the raw softmax is fed back as the next input, the pick is
@@ -18,12 +24,51 @@ shared-window ``fits`` test are host reads, once per step.
 import torch
 
 from ..ops.attention import attention_step, attention_step_shared, softmax
-from ..ops.lstm import lstm_scan, lstm_step, mm
+from ..ops.lstm import (attention_cell_preact, gate_math, lstm_scan,
+                        lstm_step, mm)
+from ..ops.lstm_scan_kernel import fused_scan_supported, lstm_scan_fused
 from .config import Seq2SeqConfig
 
 # batch-shared attention window width for greedy decode (see
 # ops/attention.py:attention_step_shared)
 SHARED_WINDOW = 32
+# Whole-sequence LSTM scan kernels for the TRAINING path
+# (ops/lstm_scan_kernel.py): 'auto' takes them for CUDA tensors at the
+# shapes they support (fused_scan_supported), 'on' forces
+# `lstm_scan_fused` (its plain versions on CPU tensors, for tests), 'off'
+# keeps the step-by-step `lstm_scan`. Training-only, like in the JAX
+# package, so the serving decode paths stay byte-stable against the
+# golden corpus.
+_FUSED_TRAIN_SCAN = 'auto'
+
+
+def _train_scan(xs, w, h0=None, c0=None, reverse=False, mask=None):
+    """lstm_scan for training-path sequence recurrences: the fused
+    whole-sequence scan where it is supported, else the plain scan.
+    Masked scans (mask_padding models' encoders) stay on the plain one."""
+    if mask is None and _FUSED_TRAIN_SCAN != 'off':
+        if _FUSED_TRAIN_SCAN == 'on' or (
+                xs.device.type == 'cuda' and fused_scan_supported(w)):
+            return lstm_scan_fused(xs, w, h0, c0, reverse=reverse)
+    return lstm_scan(xs, w, h0, c0, reverse=reverse, mask=mask)
+
+
+def _dropout_keep(shape, rate, generator, device):
+    """Bernoulli(1 - rate) keep mask drawn from `generator` (on its own
+    device) and moved to `device`."""
+    return (torch.rand(shape, generator=generator, device=generator.device)
+            < 1.0 - rate).to(device)
+
+
+def _variational_dropout(out, config, generator):
+    """Time-constant dropout on a layer's outputs (seq2seq.py:296-298):
+    one mask per sample shared over time; `config.keras_dropout` shares
+    it over the batch too, like the reference's noise_shape=(1, dim)."""
+    bdim = 1 if config.keras_dropout else out.shape[0]
+    keep = _dropout_keep((bdim, 1, out.shape[2]), config.dropout,
+                         generator, out.device)
+    return torch.where(keep, out / (1.0 - config.dropout),
+                       torch.zeros_like(out))
 
 
 def cross_sum(x):
@@ -50,30 +95,36 @@ def ensure_onehot(enc_input, config, params):
     return (onehot * valid[..., None]).to(dt)
 
 
-def encode(params, config: Seq2SeqConfig, enc_input):
+def encode(params, config: Seq2SeqConfig, enc_input, dropout_rng=None,
+           train=False):
     """Run the encoder over (B, T, V) input.
 
     Returns (attended (B,T,A), [(h,c)] per decoder layer, u (B,T,W)).
     Without ``mask_padding``, padding runs through the recurrence
-    unmasked, like the reference (seq2seq.py:1026-1043).
+    unmasked, like the reference (seq2seq.py:1026-1043). With `train`
+    the scans go through `_train_scan`, and a ``torch.Generator`` as
+    `dropout_rng` switches variational dropout on.
     """
     depth, deep = config.depth, config.deep_bidirectional_encoder
     mask = enc_input.ne(0).any(dim=2) if config.mask_padding else None
     out = mm(enc_input, params['char_embedding']['kernel'])
     states = []
+    scan = _train_scan if train else lstm_scan
     for n in range(depth):
         lw = params['encoder'][n]
         if n == 0 or deep:
             inp = out if n == 0 else cross_sum(out)
-            fw_out, _fh, _fc = lstm_scan(inp, lw['fw'], mask=mask)
-            bw_out, h, c = lstm_scan(inp, lw['bw'], reverse=True, mask=mask)
+            fw_out, _fh, _fc = scan(inp, lw['fw'], mask=mask)
+            bw_out, h, c = scan(inp, lw['bw'], reverse=True, mask=mask)
             out = torch.cat([fw_out, bw_out], dim=-1)
         else:
-            out2, h, c = lstm_scan(out, lw, mask=mask)
+            out2, h, c = scan(out, lw, mask=mask)
             if config.residual_connections and n >= 2:
                 out = out2 + out
             else:
                 out = out2
+        if train and config.dropout > 0 and dropout_rng is not None:
+            out = _variational_dropout(out, config, dropout_rng)
         if config.bridge_dense:
             bw_ = params['bridge'][n]
             h = torch.tanh(mm(h, bw_['h']['kernel']) + bw_['h']['bias'])
@@ -164,6 +215,93 @@ def decoder_step(params, config: Seq2SeqConfig, feedback, states, attended,
                                  step)
     new_states.append(hc)
     return probs, (new_states, a), a
+
+
+def forward_teacher(params, config: Seq2SeqConfig, enc_input, dec_input,
+                    dropout_rng=None, train=False, lm=False):
+    """Teacher-forced forward pass for training/evaluation.
+
+    Returns probs (B, Td, V); with `lm`, a second unconditioned pass with
+    tied weights on zeroed attention constants (reference lm_loss,
+    seq2seq.py:321-322, 340-341, 355-356) returns (probs, lm_probs).
+
+    Both inputs may be compact (B, T) integer index batches (-1 = zero
+    row); they expand to one-hot on the device (ensure_onehot).
+    `dropout_rng` is a ``torch.Generator``; it is advanced by every mask
+    drawn.
+    """
+    enc_input = ensure_onehot(enc_input, config, params)
+    dec_input = ensure_onehot(dec_input, config, params)
+    attended, states, u = encode(params, config, enc_input, dropout_rng,
+                                 train)
+    enc_mask = enc_input.ne(0).any(dim=2) if config.mask_padding else None
+    probs = _decode_teacher(params, config, dec_input, states, attended, u,
+                            dropout_rng, train, enc_mask=enc_mask)
+    if not lm:
+        return probs
+    zero_states = [(torch.zeros_like(h), torch.zeros_like(c))
+                   for h, c in states]
+    lm_probs = _decode_teacher(params, config, dec_input, zero_states,
+                               torch.zeros_like(attended),
+                               torch.zeros_like(u), dropout_rng, train,
+                               enc_mask=enc_mask)
+    return probs, lm_probs
+
+
+def _decode_teacher(params, config, dec_input, states, attended, u,
+                    dropout_rng=None, train=False, enc_mask=None):
+    """The teacher-forced decoder: whole-sequence scans for the lower
+    layers, then the top attention layer step by step over the full
+    encoder length (the JAX package's dense ``body``).
+
+    Autograd keeps every step's (B, T, W) energy tanh for the backward
+    pass, where the JAX package rematerialises it: Td*B*T*W values of
+    the weight dtype at once."""
+    depth = config.depth
+    B, Td, V = dec_input.shape
+    out = mm(dec_input, params['char_embedding']['kernel'])
+    dropping = train and config.dropout > 0 and dropout_rng is not None
+    # plain lower decoder layers: full scan with hoisted input projection
+    scan = _train_scan if train else lstm_scan
+    for n in range(depth - 1):
+        h0, c0 = states[n]
+        out2, _, _ = scan(out, params['decoder'][n], h0, c0)
+        if config.residual_connections and n > 0:
+            out = out2 + out
+        else:
+            out = out2
+        if dropping:
+            out = _variational_dropout(out, config, dropout_rng)
+    # top layer: attention and cell update per decoder step
+    top = params['decoder'][depth - 1]
+    h, c = states[depth - 1]
+    a = torch.zeros(attended.shape[:2], dtype=attended.dtype,
+                    device=attended.device)
+    masks = None
+    if dropping:
+        # per-gate masks on the cell input, constant over time
+        in_dim = config.width + config.attended_size
+        masks = (_dropout_keep((4, B, in_dim), config.dropout, dropout_rng,
+                               out.device).float()
+                 / (1.0 - config.dropout))
+    # the context is a float32 sum over float32 values: convert the
+    # attended sequence once, not once per step
+    attended_f = attended.float()
+    hs = []
+    for t in range(Td):
+        ctx, a = attention_step(top['W_a'], top['v_a'], top['b_UW'],
+                                top['b_v'], h, a, attended_f, u,
+                                config.window_width, mask=enc_mask)
+        cell_in = torch.cat([out[:, t].to(ctx.dtype), ctx], dim=-1)
+        h, c = gate_math(
+            attention_cell_preact(top['cell'], cell_in, h, masks), c)
+        hs.append(h)
+    out2 = torch.stack(hs, dim=1)
+    if config.residual_connections and depth > 1:
+        out = out2 + out
+    else:
+        out = out2
+    return _output_probs(params, out)
 
 
 def _greedy_pick(probs):

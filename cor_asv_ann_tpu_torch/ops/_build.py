@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
-process per source, all started together), linked into one shared
+Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
+``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5) is
+compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
+started together), linked into one shared
 library with a plain C interface under ``build/kernels/`` at the repo
 root, and loaded with ``ctypes``. The library's name carries a hash of
 the sources, so an edited source is rebuilt and an unchanged one is
@@ -22,7 +24,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build', 'kernels')
-SOURCES = ('lstm_step.cu', 'decode_loop.cu')
+SOURCES = ('lstm_step.cu', 'decode_loop.cu', 'lstm_scan.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -34,6 +36,9 @@ SIGNATURES = {
     'lstm_step_launch': (I, [I] + [P] * 8 + [I] * 3 + [P]),
     'decode_loop_smem_bytes': (ctypes.c_longlong, [I] * 4),
     'decode_loop_launch': (I, [P] * 19 + [P] * 4 + [I] * 8 + [P]),
+    'lstm_scan_max_width': (I, []),
+    'lstm_scan_fwd_launch': (I, [I] + [P] * 8 + [I] * 4 + [P]),
+    'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 4 + [P]),
 }
 
 _lock = threading.Lock()

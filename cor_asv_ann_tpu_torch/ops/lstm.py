@@ -42,6 +42,30 @@ def lstm_step(x, h, c, w):
     return gate_math(z, c)
 
 
+def attention_cell_preact(cell, cell_in, h, masks):
+    """Gate preactivations of the top attention-LSTM cell, with optional
+    per-gate variational dropout masks (4, B, D) on the input half.
+
+    Rounding disciplines of the JAX package: with masks, the four
+    per-gate input products and the recurrent product accumulate in
+    float32 and round ONCE; without, the `mm` per-product rounding
+    (reference-parity path)."""
+    if masks is None:
+        return (mm(cell_in, cell['kernel']) + mm(h, cell['recurrent_kernel'])
+                + cell['bias'])
+    W = cell['recurrent_kernel'].shape[0]
+    kdt = cell['kernel'].dtype
+    f32 = torch.float32
+    # inputs rounded to the weight dtype, then exact float32 products
+    # of those values summed in float32
+    ks = [torch.matmul((cell_in * masks[g]).to(kdt).to(f32),
+                       cell['kernel'][:, g * W:(g + 1) * W].to(f32))
+          for g in range(4)]
+    z = torch.cat(ks, dim=-1) + torch.matmul(
+        h.to(kdt).to(f32), cell['recurrent_kernel'].to(f32))
+    return z.to(kdt) + cell['bias']
+
+
 def lstm_scan(xs, w, h0=None, c0=None, reverse=False, mask=None):
     """Run an LSTM over xs (B, T, D). Returns (outputs (B, T, N), h, c).
 

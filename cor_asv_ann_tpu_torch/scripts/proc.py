@@ -14,6 +14,8 @@ import sys
 
 import click
 
+from . import device_option
+
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
 
@@ -44,8 +46,7 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
               type=click.Choice(['float32', 'bfloat16']),
               help='inference compute dtype (float32: exact reference '
                    'numerics)')
-@click.option('--device', default='cuda',
-              help='torch device to run on (cuda, cuda:N or cpu)')
+@device_option
 def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
         profile, profile_file, compute, device):
     """Apply a correction model on GT or text files.

@@ -1,6 +1,6 @@
 """Charset mapping, line readers and vectorization (host-side data core).
 
-A copy of what serving needs from the JAX package's ``utils/data.py``
+A copy of the JAX package's ``utils/data.py``
 (numpy only), kept here so the port imports nothing of that package.
 Re-derivation of the reference data pipeline (lib/seq2seq.py:555-588
 map_files, :919-1018 gen_lines, :1020-1119 vectorize_lines), with padded
@@ -401,6 +401,38 @@ def vectorize_lines(mapping, sources, targets, confs=None,
     weights = np.ones(dec_out.shape[:2], dtype=np.float32)
     weights[np.all(dec_out == 0, axis=2)] = 0.0
     return enc, dec_in, dec_out, weights
+
+
+def vectorize_lines_indices(mapping, sources, targets, bucketed=True,
+                            logger=None):
+    """Compact index form of `vectorize_lines` for inputs without
+    per-character confidences: (enc_idx (B,Te), dec_in_idx (B,Td),
+    dec_out_idx (B,Td), weights (B,Td)) with -1 at padding (and at the
+    decoder start symbol, which is the zero row in the dense form).
+
+    One-hot expansion happens on device (seq2seq.py:ensure_onehot); the
+    loss consumes index targets directly (train.py:weighted_xent). A
+    batch ships V times less data to the device. Semantics identical to
+    vectorize_lines.
+    """
+    enc_idx = lines_to_index_batch(mapping, sources, bucketed=bucketed,
+                                   logger=logger)
+    max_dec = max(max((len(t) for t in targets), default=1), 1)
+    pad_dec = bucket_length(max_dec + 1) if bucketed else max_dec + 1
+    B = len(targets)
+    dec_in = np.full((B, pad_dec), -1, np.int32)
+    dec_out = np.full((B, pad_dec), -1, np.int32)
+    for i, t in enumerate(targets):
+        idx = mapping.encode(t)
+        if logger is not None and (idx == 0).any():
+            for k in np.nonzero(idx == 0)[0]:
+                if t[k] != GAP:
+                    logger.error('unmapped character "%s" at decoder '
+                                 'input sequence %d', t[k], i)
+        dec_in[i, 1:1 + len(idx)] = idx
+        dec_out[i, :len(idx)] = idx
+    weights = (dec_out >= 0).astype(np.float32)
+    return enc_idx, dec_in, dec_out, weights
 
 
 def lines_to_index_batch(mapping, lines, pad_to=None, bucketed=True,

@@ -17,7 +17,8 @@ from cor_asv_ann_tpu_torch.models.config import Seq2SeqConfig, init_params
 from cor_asv_ann_tpu_torch.models.params import params_from_numpy
 from cor_asv_ann_tpu_torch.models.seq2seq import encode, ensure_onehot
 from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
-from cor_asv_ann_tpu_torch.ops.lstm import lstm_step
+from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan, lstm_step
 from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import lstm_step_fused
 from cor_asv_ann_tpu_torch.utils.data import CharMapping, lines_to_index_batch
 
@@ -122,3 +123,111 @@ def test_fused_dispatch_counts_launches(dev):
     before = lstm_step_fused.launches
     s2s.correct_lines(["abba dig.\n"], return_alignments=False)
     assert lstm_step_fused.launches - before >= 2
+
+
+def _scan_inputs(dev, dtype, T, B, N, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((T, B, 4 * N)),
+              rng.standard_normal((N, 4 * N)) * (1.0 / np.sqrt(N)),
+              rng.standard_normal((B, N)) * 0.2,
+              rng.standard_normal((B, N)) * 0.2]
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype).to(dev)
+            for a in arrays]
+
+
+def _shift(hs, h0, reverse):
+    return (torch.cat([hs[1:], h0[None]]) if reverse
+            else torch.cat([h0[None], hs[:-1]]))
+
+
+SCAN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('T,B,N', [(7, 5, 40), (12, 9, 520), (16, 64, 512)])
+def test_lstm_scan_fwd_kernel(dev, dtype, reverse, T, B, N):
+    """K4 against its plain version: ragged batch tiles, widths that
+    leave threads to split the reduction (N=40), that fill one column
+    tile (N=512) and that need a second one (N=520).
+    float32 differs in summation order and in expf/tanhf against
+    PyTorch's; bfloat16 by an ulp of a gate carried along the sweep."""
+    zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N)
+    before = lsk.lstm_scan_fwd.launches
+    got = lsk.lstm_scan_fwd(zx, R, h0, c0, reverse)
+    torch.cuda.synchronize()
+    assert lsk.lstm_scan_fwd.launches == before + 1
+    want = lsk.lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('T,B,N', [(7, 5, 40), (16, 64, 512)])
+def test_lstm_scan_bwd_kernel(dev, dtype, reverse, T, B, N):
+    """K5 against its plain version on the states the plain K4 saved."""
+    zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N, seed=1)
+    hs, cs, _, _ = lsk.lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+    hprev, cprev = _shift(hs, h0, reverse), _shift(cs, c0, reverse)
+    rng = np.random.default_rng(2)
+    g_hs, g_hT, g_cT = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        .to(dtype).to(dev) for s in ((T, B, N), (B, N), (B, N)))
+    before = lsk.lstm_scan_bwd.launches
+    got = lsk.lstm_scan_bwd(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs,
+                            reverse)
+    torch.cuda.synchronize()
+    assert lsk.lstm_scan_bwd.launches == before + 1
+    want = lsk.lstm_scan_bwd_reference(g_hs, g_hT, g_cT, zx, R, hprev,
+                                       cprev, cs, reverse)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    # gradients grow along the sweep: compare relative to their scale
+    for g, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float() / scale, w.float() / scale,
+                                   **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+def test_lstm_scan_autograd_matches_plain_scan(dev, reverse):
+    """LstmScan (K4 + K5 + the weight-gradient product) against autograd
+    through the step-by-step lstm_scan in float32."""
+    B, T, D, N = 9, 10, 24, 40
+    rng = np.random.default_rng(3)
+
+    def leaf(*shape, scale=1.0):
+        return (torch.from_numpy((rng.standard_normal(shape) * scale)
+                                 .astype(np.float32)).to(dev)
+                .requires_grad_())
+
+    xs, h0, c0 = leaf(B, T, D), leaf(B, N, scale=.2), leaf(B, N, scale=.2)
+    w = {'kernel': leaf(D, 4 * N, scale=.3),
+         'recurrent_kernel': leaf(N, 4 * N, scale=.3),
+         'bias': leaf(4 * N, scale=.1)}
+    wo, wh, wc = (leaf(*s).detach() for s in ((B, T, N), (B, N), (B, N)))
+    leaves = [xs, h0, c0, *w.values()]
+
+    def grads(fn):
+        out, h, c = fn(xs, w, h0, c0, reverse=reverse)
+        return torch.autograd.grad(
+            (out * wo).sum() + (h * wh).sum() + (c * wc).sum(), leaves)
+
+    assert lsk.fused_scan_supported(w)
+    for g, r in zip(grads(lsk.lstm_scan_fused), grads(lstm_scan)):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-5)
+
+
+def test_lstm_scan_kernel_refuses_what_it_cannot_take(dev):
+    zx, R, h0, c0 = _scan_inputs(dev, torch.float32, 3, 2, 8)
+    with pytest.raises(ValueError):
+        lsk.lstm_scan_fwd(zx, R.cpu(), h0, c0)
+    with pytest.raises(ValueError):
+        lsk.lstm_scan_fwd(zx.double(), R.double(), h0.double(), c0.double())
+    # a width that is no multiple of 8: the launcher reports it
+    zx, R, h0, c0 = _scan_inputs(dev, torch.float32, 3, 2, 12)
+    assert not lsk.fused_scan_supported({'recurrent_kernel': R})
+    with pytest.raises(RuntimeError):
+        lsk.lstm_scan_fwd(zx, R, h0, c0)

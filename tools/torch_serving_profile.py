@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of greedy serving goes on the GPU (PyTorch port).
+"""Where the time of greedy serving, or of a training step, goes on the
+GPU (PyTorch port).
 
 Run from the repo root on a machine with a CUDA GPU:
 
-    python3 tools/torch_serving_profile.py [--out DIR]
+    python3 tools/torch_serving_profile.py [--train] [--out DIR]
 
-Serves the golden-corpus lines of the d2/w512 flagship through
-``Sequence2Sequence.correct_lines`` in two regimes, float32 at B=256
-(``decode_greedy``) and bfloat16 at B=16 (the whole-loop kernel), and
-for each prints the wall time under the profiler, the device busy time
-summed over kernels (so the idle share of the device), the kernel launch
-count and the top kernels by device time, from ``torch.profiler``. Writes each trace as a
-chrome trace under --out (default build/profile). Imports nothing of JAX.
+Without ``--train`` it serves the golden-corpus lines of the d2/w512
+flagship through ``Sequence2Sequence.correct_lines`` in two regimes,
+float32 at B=256 (``decode_greedy``) and bfloat16 at B=16 (the
+whole-loop kernel). With ``--train`` it takes one ``train_step`` of a
+randomly initialised d2/w512 model at B=256, T=Td=128 on synthetic
+lines, without masked padding (all four LSTM scans through the scan
+kernels), in float32 and bfloat16, and in bfloat16 once more with the
+scan kernels switched off. For each regime it prints the wall time
+under the profiler, the device busy time summed over kernels (so the
+idle share of the device), the kernel launch count and the top kernels
+by device time, from ``torch.profiler``. Writes each trace as a chrome
+trace under --out (default build/profile). Imports nothing of JAX.
 """
 
 import argparse
@@ -21,18 +27,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, 'testmodels', 'flagship.d2.w512.synthetic.h5')
 
 
-def profile(torch, s2s, lines, name, out_dir):
+def profile(torch, run, n_lines, name, out_dir):
+    """Profile one call of `run()` after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    s2s.correct_lines(list(lines), return_alignments=False)   # warm-up
+    run()                                                     # warm-up
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s2s.correct_lines(list(lines), return_alignments=False)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a CPU op's self device time is that of
@@ -47,7 +56,7 @@ def profile(torch, s2s, lines, name, out_dir):
     launches = sum(k[1] for k in kernels)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, name + '.json'))
-    summary = {'regime': name, 'lines': len(lines),
+    summary = {'regime': name, 'lines': n_lines,
                'wall_ms': wall * 1e3, 'device_busy_ms': busy_ms,
                'device_idle_share': 1.0 - busy_ms / (wall * 1e3),
                'kernel_launches': launches,
@@ -57,10 +66,53 @@ def profile(torch, s2s, lines, name, out_dir):
     return summary
 
 
+def profile_training(torch, out_dir):
+    from cor_asv_ann_tpu_torch.models import seq2seq
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.config import Seq2SeqConfig, init_params
+    from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
+                                                     tree_map)
+    from cor_asv_ann_tpu_torch.utils.data import (CharMapping,
+                                                  vectorize_lines_indices)
+    from cor_asv_ann_tpu_torch.utils.synthdata import make_pairs
+    pairs = make_pairs(256, seed=7)
+    sources = [a + '\n' for a, _ in pairs]
+    targets = [b + '\n' for _, b in pairs]
+    mapping = CharMapping.from_texts(sources + targets)
+    config = Seq2SeqConfig(width=512, depth=2, voc_size=mapping.voc_size,
+                           mask_padding=False)
+    enc, dec_in, dec_out, w = vectorize_lines_indices(mapping, sources,
+                                                      targets)
+    # pad to the T = Td = 128 bucket of long lines
+    pad = ((0, 0), (0, 128 - enc.shape[1]))
+    enc, dec_in, dec_out = (np.pad(a, pad, constant_values=-1)
+                            for a in (enc, dec_in, dec_out))
+    batch = (enc, dec_in, dec_out, np.pad(w, pad))
+    for name, compute, scan in (('train_f32', None, 'auto'),
+                                ('train_bf16', 'bfloat16', 'auto'),
+                                ('train_bf16_plain_scan', 'bfloat16',
+                                 'off')):
+        params = tree_map(lambda t: t.requires_grad_(),
+                          params_from_numpy(init_params(config, seed=1),
+                                            'cuda'))
+        opt = T.make_optimizer(params)
+        gen = torch.Generator().manual_seed(0)
+        seq2seq._FUSED_TRAIN_SCAN = scan
+        try:
+            profile(torch,
+                    lambda: T.train_step(params, opt, config, *batch, gen,
+                                         compute_dtype=compute),
+                    256, name, out_dir)
+        finally:
+            seq2seq._FUSED_TRAIN_SCAN = 'auto'
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default=os.path.join(ROOT, 'build', 'profile'),
                     help='directory for the chrome traces')
+    ap.add_argument('--train', action='store_true',
+                    help='profile training steps instead of serving')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -71,17 +123,24 @@ def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.train:
+        profile_training(torch, args.out)
+        return 0
     with open(os.path.join(ROOT, 'tests', 'golden_corpus.json')) as f:
         corpus = json.load(f)['inputs']['plain']
     s2s = Sequence2Sequence(device='cuda')
     s2s.load_config(FLAGSHIP)
     s2s.configure()
     s2s.load_weights(FLAGSHIP)
-    profile(torch, s2s, (corpus * 3)[:256], 'f32_B256', args.out)
+    def serve(lines):
+        return lambda: s2s.correct_lines(list(lines),
+                                         return_alignments=False)
+
+    profile(torch, serve((corpus * 3)[:256]), 256, 'f32_B256', args.out)
     s2s.compute = 'bfloat16'
-    profile(torch, s2s, corpus[:16], 'bf16_B16_fused', args.out)
+    profile(torch, serve(corpus[:16]), 16, 'bf16_B16_fused', args.out)
     s2s.fused_decode = False
-    profile(torch, s2s, corpus[:16], 'bf16_B16_plain', args.out)
+    profile(torch, serve(corpus[:16]), 16, 'bf16_B16_plain', args.out)
     return 0
 
 
