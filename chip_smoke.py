@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``cor_asv_ann_tpu_torch/csrc`` into
-``build/kernels/``, holds each kernel against its plain PyTorch version
-at the shapes the main paths give it, and drives both paths of the port:
+``build/kernels/`` (four sources), holds each of the six kernels against
+its plain PyTorch version at the shapes the main paths give it, and
+drives both paths of the port:
 
 - greedy serving of the bundled d2/w512 model
   (``testmodels/flagship.d2.w512.synthetic.h5``) through
@@ -13,8 +14,9 @@ at the shapes the main paths give it, and drives both paths of the port:
 - training of a d2/w512 model at batch 256 on a synthetic corpus through
   ``train_step`` and ``Sequence2Sequence.train`` in float32 and bfloat16,
   with and without masked padding, then saving the model, loading it
-  back and serving from the file (the LSTM scan kernels, forward and
-  backward).
+  back and serving from the file (the LSTM scan kernels and, without
+  masked padding, the fused teacher-layer kernels, forward and backward),
+  and steps at T = Td = 128 with the teacher kernels on and off.
 
 It shows that each path launched its kernels, and times the kernels.
 Any failed check raises, so the script exits non-zero. It imports
@@ -74,9 +76,12 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def load_model(device, compute='float32', filename=FLAGSHIP):
+def load_model(device, compute='float32', filename=FLAGSHIP,
+               keras_padding=False):
     from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
     s2s = Sequence2Sequence(device=device)
+    # the padding mode is the caller's choice, not part of the file
+    s2s.keras_padding = keras_padding
     s2s.load_config(filename)
     s2s.configure()
     s2s.load_weights(filename)
@@ -335,6 +340,155 @@ def phase_k5(torch, dev):
     return errs
 
 
+def _teacher_inputs(torch, dev, dt, B, Td, T, W, A, with_masks, seed):
+    """K6's inputs in its own order (without ww), at the scale a model's
+    activations have."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def mk(shape, scale, dtype=dt):
+        return (torch.randn(*shape, generator=gen) * scale).to(dtype).to(dev)
+
+    zx = mk((Td, B, 4 * W), 1.0, torch.float32)
+    u, att = mk((B, T, W), 0.5), mk((B, T, A), 0.5)
+    Kc, R = mk((A, 4 * W), A ** -0.5), mk((W, 4 * W), W ** -0.5)
+    W_a, v = mk((W, W), W ** -0.5), mk((1, W), 2 * W ** -0.5)
+    b_UW, b_v = mk((1, W), 0.1), mk((1, 1), 0.1, torch.float32)
+    bias = mk((1, 4 * W), 0.1)
+    if with_masks:
+        maskc = ((torch.rand(4, B, A, generator=gen) < 0.8) / 0.8)
+        maskc = maskc.to(dt).to(dev)
+    else:
+        maskc = torch.ones((4, B, A), dtype=dt, device=dev)
+    h0, c0 = mk((B, W), 0.2), mk((B, W), 0.2)
+    return [zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0]
+
+
+# (B, Td, T, W, A, ww): the flagship training shape, and a small one with
+# a ragged last block of rows, T != Td and narrow widths
+TEACHER_SHAPES = ((256, 128, 128, 512, 512, 5), (7, 9, 16, 40, 24, 5))
+
+
+def teacher_tolerance(torch, dt):
+    """(atol, rtol, t0_rtol). float32: summation order and expf/tanhf
+    against PyTorch's; bf16: an ulp of a gate carried along the sweep
+    (as `scan_tolerance`). t0_rtol: how close, relative to its value, a
+    row's window centre must lie to an integer for the two to be allowed
+    to see different windows there (the row is compared up to that
+    step): float32 sums of ~100 terms, or bf16 ulps of the alignment."""
+    return ((2e-5, 1e-5, 1e-5) if dt == torch.float32
+            else (2e-2, 2e-2, 2e-2))
+
+
+def phase_k6(torch, dev):
+    """K6 against its plain version, both dtypes, with and without
+    dropout masks."""
+    from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = teacher_tolerance(torch, dt)
+        for B, Td, T, W, A, ww in TEACHER_SHAPES:
+            for with_masks in (False, True):
+                ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A,
+                                      with_masks, 7)
+                got = tk.teacher_fwd(*ins, ww)
+                torch.cuda.synchronize()
+                want = tk.teacher_fwd_reference(*ins, ww)
+                err, share = tk.teacher_fwd_agreement(got, want, *tol)
+                # float32 rows part ways only by accident; bf16 rows do
+                # where an ulp of the alignment moves t0 past an integer
+                # (measured: 0.7-1.4% of the pairs at the flagship shape)
+                check(share >= (0.99 if dt == torch.float32 else 0.9),
+                      'K6 %s: only %.3f of the (step, row) pairs could be '
+                      'compared' % (_dtype_name(dt), share))
+                errs[(_dtype_name(dt), B, with_masks)] = err
+                print('K6 %-8s B=%-3d Td=%-3d T=%-3d W=%-3d A=%-3d masks=%d '
+                      'max|kernel-plain| = %.3g over %.1f%% of the (step, '
+                      'row) pairs (atol %g rtol %g, windows may differ where '
+                      't0 is within %g*t0 of an integer)'
+                      % (_dtype_name(dt), B, Td, T, W, A, with_masks, err,
+                         100 * share, *tol))
+    return errs
+
+
+def phase_k7(torch, dev):
+    """K7 against its plain version on the residuals the plain K6 saved,
+    then TeacherTopFused against autograd through the dense body."""
+    from cor_asv_ann_tpu_torch.models.seq2seq import _teacher_body
+    from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        atol, rtol, _ = teacher_tolerance(torch, dt)
+        for B, Td, T, W, A, ww in TEACHER_SHAPES:
+            for with_masks in (False, True):
+                ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A,
+                                      with_masks, 8)
+                zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 \
+                    = ins
+                hs, cs, aa, zs = tk.teacher_fwd_reference(*ins, ww)
+                gen = torch.Generator().manual_seed(9)
+                # cotangents of the size a mean loss hands back
+                g = (torch.randn(*hs.shape, generator=gen) * 0.1).to(dt) \
+                    .to(dev)
+                args = (zs, g, _shift(torch, hs, h0, False),
+                        _shift(torch, cs, c0, False), cs, aa, u, att, Kc, R,
+                        W_a, v, b_UW, maskc, ww)
+                got = tk.teacher_bwd(*args)
+                torch.cuda.synchronize()
+                want = tk.teacher_bwd_reference(*args)
+                err = 0.0
+                for g_, w in zip(got, want):
+                    # relative to the gradient's own scale
+                    scale = max(1.0, w.float().abs().max().item())
+                    torch.testing.assert_close(g_.float() / scale,
+                                               w.float() / scale,
+                                               atol=atol, rtol=rtol)
+                    err = max(err, ((g_.float() - w.float()).abs().max()
+                                    / scale).item())
+                errs[(_dtype_name(dt), B, with_masks)] = err
+                print('K7 %-8s B=%-3d Td=%-3d T=%-3d W=%-3d A=%-3d masks=%d '
+                      'max|kernel-plain|/scale = %.3g (atol %g rtol %g)'
+                      % (_dtype_name(dt), B, Td, T, W, A, with_masks, err,
+                         atol, rtol))
+    # the autograd.Function against autograd through the dense body, f32
+    B, Td, T, W, A, ww = 9, 10, 20, 512, 512, 5
+    gen = torch.Generator().manual_seed(10)
+
+    def leaf(*shape, scale):
+        return ((torch.randn(*shape, generator=gen) * scale).to(dev)
+                .requires_grad_())
+
+    top = {'W_a': leaf(W, W, scale=W ** -0.5),
+           'v_a': leaf(W, 1, scale=2 * W ** -0.5),
+           'b_UW': leaf(W, scale=.1), 'b_v': leaf(1, scale=.1),
+           'cell': {'kernel': leaf(W + A, 4 * W, scale=(W + A) ** -0.5),
+                    'recurrent_kernel': leaf(W, 4 * W, scale=W ** -0.5),
+                    'bias': leaf(4 * W, scale=.1)}}
+    xs, att, u = (leaf(*shape, scale=.5) for shape in
+                  ((B, Td, W), (B, T, A), (B, T, W)))
+    h0, c0 = leaf(B, W, scale=.2), leaf(B, W, scale=.2)
+    leaves = [top['W_a'], top['v_a'], top['b_UW'], top['b_v'],
+              *top['cell'].values(), xs, att, u, h0, c0]
+    for with_masks in (False, True):
+        masks = (((torch.rand(4, B, W + A, generator=gen) < 0.8) / 0.8)
+                 .to(dev) if with_masks else None)
+        out = tk.teacher_top_fused(top, xs, att, u, h0, c0, masks, ww)
+        ref = _teacher_body(top, xs, att, u, h0, c0, masks, ww, 0, None)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        worst = 0.0
+        for g_, r in zip(torch.autograd.grad((out ** 2).sum(), leaves),
+                         torch.autograd.grad((ref ** 2).sum(), leaves)):
+            # relative to the gradient's scale; the gradient of b_v is 0
+            # up to rounding (a softmax ignores a shift of its energies)
+            scale = max(1.0, r.abs().max().item())
+            torch.testing.assert_close(g_ / scale, r / scale, rtol=2e-3,
+                                       atol=2e-4)
+            worst = max(worst, ((g_ - r).abs().max() / scale).item())
+        print('TeacherTopFused vs autograd through the dense body, f32, '
+              'masks=%d: max gradient diff / scale = %.3g (rtol 2e-3 atol '
+              '2e-4)' % (with_masks, worst))
+    return errs
+
+
 def write_corpus(path, n):
     from cor_asv_ann_tpu_torch.utils.synthdata import make_pairs
     with open(path, 'w', encoding='utf-8') as f:
@@ -353,11 +507,76 @@ def new_trainer(dev, data, keras_padding, compute):
     return s2s
 
 
+def long_line_steps(torch, dev, data, batch, launches_of):
+    """train_steps at the flagship training shape B=256, T=Td=128 (the
+    batch of short lines padded out), bf16 compute, no masked padding,
+    with the fused teacher kernels ('auto') and with the dense body
+    ('off'): ms per step, peak memory and wrapper launches per step."""
+    import numpy as np
+    from cor_asv_ann_tpu_torch.models import seq2seq
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
+                                                     tree_map)
+    s2s = new_trainer(dev, data, True, 'bfloat16')
+    *indices, w = batch
+
+    def pad(a, value):
+        return np.pad(a, ((0, 0), (0, 128 - a.shape[1])),
+                      constant_values=value)
+
+    long_batch = (*(pad(a, -1) for a in indices), pad(w, 0))
+    report = {}
+    steps = 3
+    for mode in ('auto', 'off'):
+        params = tree_map(lambda t: t.requires_grad_(),
+                          params_from_numpy(s2s.params, dev))
+        opt = T.make_optimizer(params, s2s.learning_rate)
+        gen = torch.Generator().manual_seed(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches_of()
+        losses, times = [], []
+        seq2seq._TEACHER_KERNEL = mode
+        try:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = T.train_step(params, opt, s2s.config, *long_batch,
+                                    gen, compute_dtype='bfloat16')
+                losses.append(float(loss))
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            seq2seq._TEACHER_KERNEL = 'auto'
+        after = launches_of()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = {k: (after[k] - before[k]) / steps for k in after}
+        teacher = 1 if mode == 'auto' else 0
+        check(all(np.isfinite(losses)), 'T=128 %s: loss not finite: %s'
+              % (mode, losses))
+        check(per_step['teacher_fwd'] == per_step['teacher_bwd'] == teacher,
+              'T=128 with _TEACHER_KERNEL=%r: launches per step %s'
+              % (mode, per_step))
+        name = 'keras_padding_bfloat16_T128_teacher_kernel_' + mode
+        report[name] = dict(step_ms=min(times[1:]), first_step_ms=times[0],
+                            peak_gib=peak, train_losses=losses,
+                            launches_per_step=per_step,
+                            shape='B=%d T=%d Td=%d' % (
+                                *long_batch[0].shape,
+                                long_batch[1].shape[1]))
+        print('train_step bf16 %s, _TEACHER_KERNEL=%r: %.1f ms/step (first '
+              '%.1f), peak %.2f GiB, launches per step %s'
+              % (report[name]['shape'], mode, report[name]['step_ms'],
+                 times[0], peak, per_step))
+    return report
+
+
 def train_path(torch, dev, tmp, launches_of):
     """The training path at width 512, depth 2, batch 256: train_steps in
-    float32 and bfloat16 under both padding modes, then train() for one
-    epoch, save(), reload and serve from the file. Returns per-regime
-    step times, peak memory and launch counts."""
+    float32 and bfloat16 under both padding modes (without masked padding
+    through the fused teacher kernels), steps at T = Td = 128 with those
+    kernels on and off, then train() for one epoch, save(), reload and
+    serve from the file. Returns per-regime step times, peak memory and
+    launch counts."""
     import numpy as np
     from cor_asv_ann_tpu_torch.models import train as T
     from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
@@ -367,12 +586,14 @@ def train_path(torch, dev, tmp, launches_of):
     data = os.path.join(tmp, 'train.tsv')
     write_corpus(data, 768)
     report = {}
-    steps = 5
+    steps = 4
     for keras_padding in (False, True):
         # what the configuration implies: with masked padding only the
-        # lower decoder layer's scan is unmasked; without, the two
-        # directions of encoder layer 1, encoder layer 2 and that one
-        scans = 4 if keras_padding else 1
+        # lower decoder layer's scan is unmasked and the top layer stays
+        # on the dense body; without, the two directions of encoder
+        # layer 1, encoder layer 2 and the lower decoder layer scan
+        # through K4/K5 and the top layer runs through K6/K7
+        scans, teacher = (4, 1) if keras_padding else (1, 0)
         for compute in ('float32', 'bfloat16'):
             s2s = new_trainer(dev, data, keras_padding, compute)
             sources, confs, targets, _ = next(gen_line_batches(
@@ -408,9 +629,12 @@ def train_path(torch, dev, tmp, launches_of):
                   '%s' % (name, eval_before, eval_after))
             per_step = {k: (after[k] - before[k]) / steps for k in after}
             check(per_step == {'lstm_scan_fwd': scans,
-                               'lstm_scan_bwd': scans},
-                  '%s: launches per step %s, expected %d of each'
-                  % (name, per_step, scans))
+                               'lstm_scan_bwd': scans,
+                               'teacher_fwd': teacher,
+                               'teacher_bwd': teacher},
+                  '%s: launches per step %s, expected %d of each scan '
+                  'kernel and %d of each teacher kernel'
+                  % (name, per_step, scans, teacher))
             report[name] = dict(
                 step_ms=min(times[1:]), first_step_ms=times[0],
                 peak_gib=peak, eval_loss_before=eval_before,
@@ -420,12 +644,15 @@ def train_path(torch, dev, tmp, launches_of):
                                            batch[0].shape[1],
                                            batch[1].shape[1]))
             print('train_step %-22s %s: %.1f ms/step (first %.1f), peak '
-                  '%.2f GiB, eval loss %.4f -> %.4f, K4/K5 launches per '
-                  'step %d/%d' % (name, report[name]['shape'],
-                                  report[name]['step_ms'], times[0], peak,
-                                  eval_before, eval_after, scans, scans))
+                  '%.2f GiB, eval loss %.4f -> %.4f, launches per step '
+                  'K4/K5 %d/%d K6/K7 %d/%d'
+                  % (name, report[name]['shape'], report[name]['step_ms'],
+                     times[0], peak, eval_before, eval_after, scans, scans,
+                     teacher, teacher))
+    report.update(long_line_steps(torch, dev, data, batch, launches_of))
     # the whole loop: one short epoch, model file out, served back in
-    s2s = new_trainer(dev, data, False, 'bfloat16')
+    # (without masked padding, so that it trains through K6/K7 too)
+    s2s = new_trainer(dev, data, True, 'bfloat16')
     s2s.epochs = 1
     history = s2s.train([data], checkpoint_dir=tmp)
     check(s2s.status == 2 and len(history['loss']) == 1
@@ -434,7 +661,7 @@ def train_path(torch, dev, tmp, launches_of):
           'train() did not finish an epoch: %s' % history)
     model = os.path.join(tmp, 'trained.h5')
     s2s.save(model)
-    served = load_model(dev, filename=model)
+    served = load_model(dev, filename=model, keras_padding=True)
     config, mapping = io_h5.load_config(model)
     check(config.width == 512 and config.depth == 2
           and mapping.c2i == s2s.mapping.c2i, 'saved config differs')
@@ -512,6 +739,65 @@ def scan_times(torch, dev, dt):
     return out
 
 
+def teacher_times(torch, dev, dt):
+    """K6 and K7 at the flagship training shape, with dropout masks:
+    kernel (the wrapper, which for K7 also transposes the three weights
+    and zeroes du/datt), plain version and bound. No single PyTorch call
+    computes either function, so there is no library yardstick."""
+    from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
+    B, Td, T, W, A, ww = TEACHER_SHAPES[0]
+    ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A, True, 11)
+    zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
+    hs, cs, aa, zs = tk.teacher_fwd(*ins, ww)
+    g = torch.full_like(hs, 1e-3)
+    bwd_args = (zs, g, _shift(torch, hs, h0, False),
+                _shift(torch, cs, c0, False), cs, aa, u, att, Kc, R, W_a, v,
+                b_UW, maskc, ww)
+    name = _dtype_name(dt)
+    size = u.element_size()
+    out = {}
+    out['fwd_ms'] = cuda_time_ms(lambda: tk.teacher_fwd(*ins, ww), 3)
+    out['fwd_plain_ms'] = cuda_time_ms(
+        lambda: tk.teacher_fwd_reference(*ins, ww), 1)
+    out['bwd_ms'] = cuda_time_ms(lambda: tk.teacher_bwd(*bwd_args), 3)
+    out['bwd_plain_ms'] = cuda_time_ms(
+        lambda: tk.teacher_bwd_reference(*bwd_args), 1)
+    # what this run's data needs: of u and attended only the rows that
+    # some step's window reaches, and the window terms of the visible
+    # (step, row, position) triples
+    visible = aa != 0
+    nnz, touched = int(visible.sum()), int(visible.any(dim=0).sum())
+    n = Td * B
+    weights = A * 4 * W + W * 4 * W + W * W
+    # K6 reads zx (float32), the touched rows of u and attended, Kc, R,
+    # W_a, v, b_UW, b_v, bias, maskc, h0, c0; writes hs, cs, aa, zs
+    fwd_bytes = 4 * n * 4 * W + 4 + size * (
+        touched * (W + A) + weights + 6 * W + 4 * B * A + 2 * B * W
+        + n * (2 * W + T + 4 * W))
+    fwd_flops = n * 2 * (W * W + 4 * A * W + 4 * W * W) \
+        + 2 * nnz * (W + A)
+    out['fwd_bound_ms'], out['fwd_bound_by'] = bound(fwd_bytes, fwd_flops,
+                                                     name)
+    # K7 reads zs, g, hprev, cprev, cs, aa, the touched rows, the three
+    # weights, v, b_UW, maskc; writes dz, ds, dctx, dwvec and, in
+    # float32, dh0, dc0, dva, du, datt
+    bwd_bytes = size * (n * (8 * W + T) + touched * (W + A) + weights
+                        + 2 * W + 4 * B * A + n * (4 * W + T + A + W)) \
+        + 4 * (3 * B * W + B * T * (W + A))
+    bwd_flops = n * 2 * (2 * W * W + 4 * A * W + 4 * W * W) \
+        + 2 * nnz * (2 * A + 3 * W)
+    out['bwd_bound_ms'], out['bwd_bound_by'] = bound(bwd_bytes, bwd_flops,
+                                                     name)
+    for k, which in (('K6', 'fwd'), ('K7', 'bwd')):
+        print('%s %s B=%d Td=%d T=%d W=%d A=%d: kernel %.3f ms, plain %.3f '
+              'ms, bound %.4f ms (%s; %d visible positions, %d rows of '
+              'u/attended touched)'
+              % (k, name, B, Td, T, W, A, out[which + '_ms'],
+                 out[which + '_plain_ms'], out[which + '_bound_ms'],
+                 out[which + '_bound_by'], nnz, touched))
+    return out
+
+
 def lines_per_s(torch, s2s, lines, reps=2):
     s2s.correct_lines(list(lines), return_alignments=False)
     torch.cuda.synchronize()
@@ -536,6 +822,7 @@ def main():
     from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
     from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
     from cor_asv_ann_tpu_torch.ops import lstm_step_kernel as k2
+    from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
     from cor_asv_ann_tpu_torch.ops.lstm import lstm_step
     dev = torch.device('cuda')
     smi = subprocess.run(
@@ -563,13 +850,20 @@ def main():
     # K4 and K5 against their plain versions
     k4_errs = phase_k4(torch, dev)
     k5_errs = phase_k5(torch, dev)
+    # K6 and K7 against their plain versions
+    k6_errs = phase_k6(torch, dev)
+    k7_errs = phase_k7(torch, dev)
 
     # 4 + 5. the main paths, each with every launch count set to 0 just
     # before it and read just after it
     wrappers = {'decode_loop': dlk.decode_loop,
                 'lstm_step': k2.lstm_step_fused,
                 'lstm_scan_fwd': lsk.lstm_scan_fwd,
-                'lstm_scan_bwd': lsk.lstm_scan_bwd}
+                'lstm_scan_bwd': lsk.lstm_scan_bwd,
+                'teacher_fwd': tk.teacher_fwd,
+                'teacher_bwd': tk.teacher_bwd}
+    train_kernels = ('lstm_scan_fwd', 'lstm_scan_bwd', 'teacher_fwd',
+                     'teacher_bwd')
 
     def reset_counts():
         for fn in wrappers.values():
@@ -583,10 +877,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         train_report = train_path(
             torch, dev, tmp,
-            lambda: {k: wrappers[k].launches
-                     for k in ('lstm_scan_fwd', 'lstm_scan_bwd')})
-    launches.update({k: wrappers[k].launches
-                     for k in ('lstm_scan_fwd', 'lstm_scan_bwd')})
+            lambda: {k: wrappers[k].launches for k in train_kernels})
+    launches.update({k: wrappers[k].launches for k in train_kernels})
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
           'a kernel of the main paths was not launched: %s' % launches)
@@ -660,6 +952,9 @@ def main():
     # batch gives them; bfloat16 goes into the kernels line
     scan_f32 = scan_times(torch, dev, torch.float32)
     scan_bf16 = scan_times(torch, dev, torch.bfloat16)
+    # K6 and K7 at B=256, Td=T=128, W=A=512, likewise
+    teacher_f32 = teacher_times(torch, dev, torch.float32)
+    teacher_bf16 = teacher_times(torch, dev, torch.bfloat16)
 
     # serving throughput through correct_lines
     lines256 = (corpus * 3)[:256]
@@ -708,8 +1003,29 @@ def main():
              bound_ms=scan_bf16['bwd_bound_ms'],
              bound_by=scan_bf16['bwd_bound_by'],
              library_ms=scan_bf16['bwd_library_ms']),
+        dict(name='teacher_fwd', route='cuda',
+             source='cor_asv_ann_tpu_torch/csrc/teacher_scan.cu',
+             replaces='cor_asv_ann_tpu/ops/pallas_teacher.py:131',
+             launches=launches['teacher_fwd'],
+             max_abs_err=max(v for k, v in k6_errs.items()
+                             if k[0] == 'bfloat16'),
+             ms=teacher_bf16['fwd_ms'],
+             plain_ms=teacher_bf16['fwd_plain_ms'],
+             bound_ms=teacher_bf16['fwd_bound_ms'],
+             bound_by=teacher_bf16['fwd_bound_by'], library_ms=None),
+        dict(name='teacher_bwd', route='cuda',
+             source='cor_asv_ann_tpu_torch/csrc/teacher_scan.cu',
+             replaces='cor_asv_ann_tpu/ops/pallas_teacher.py:195',
+             launches=launches['teacher_bwd'],
+             max_abs_err=max(v for k, v in k7_errs.items()
+                             if k[0] == 'bfloat16'),
+             ms=teacher_bf16['bwd_ms'],
+             plain_ms=teacher_bf16['bwd_plain_ms'],
+             bound_ms=teacher_bf16['bwd_bound_ms'],
+             bound_by=teacher_bf16['bwd_bound_by'], library_ms=None),
     ]
     print('scan kernels float32: %s' % json.dumps(scan_f32))
+    print('teacher kernels float32: %s' % json.dumps(teacher_f32))
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -30,116 +30,16 @@
 // FMA units: 512 threads with 8 loads in flight each measured 1.65x faster
 // than 256 threads with 4. K5's second product reads a transposed
 // copy of R that the wrapper makes once, which lets it reuse the same routine
-// with coalesced loads. Plain float32 FMA: tensor cores and a grid that shares
-// one copy of R across SMs are later work.
+// (block_product in scan_common.cuh) with coalesced loads. Plain float32 FMA:
+// tensor cores and a grid that shares one copy of R across SMs are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr int BT = 4;          // batch rows per block
-constexpr int NT = 512;        // threads per block
-constexpr int CG = 8;          // weight columns per thread in a product
-constexpr int TILE = NT * CG;  // columns per product tile
+using namespace scan;
+
 constexpr int MAX_N = 1024;    // widest layer whose scratch fits one block
-static_assert(BT == 4, "block_product keeps the BT rows of one k in a float4");
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// round to the storage type and back
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-// the Pallas kernels' manual logistic, every intermediate in the weight dtype
-template <typename T> __device__ __forceinline__ float sig(float v) {
-  return rnd<T>(1.0f / rnd<T>(1.0f + rnd<T>(expf(-v))));
-}
-
-// eight consecutive weights, 16-byte aligned
-__device__ __forceinline__ void load8(const float* p, float (&w)[CG]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[CG]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
-  }
-}
-
-// out_s[r][col] = sum_k a_s[k][r] * M[k][col] for r < BT, col < ncols (a
-// multiple of CG), with M (K, ncols) row-major in global memory and a_s one
-// float4 (the BT rows) per k in shared memory. Threads beyond the column
-// groups take ranges of k; part_s (NT*BT*CG floats) holds their partial sums,
-// which are added in the order of the ranges. Ends with the block synchronised.
-template <typename T>
-__device__ __forceinline__ void block_product(const float4* __restrict__ a_s,
-                                              const T* __restrict__ M, int K, int ncols,
-                                              float* __restrict__ part_s,
-                                              float* __restrict__ out_s) {
-  const int tid = threadIdx.x;
-  for (int col0 = 0; col0 < ncols; col0 += TILE) {
-    const int tcols = min(TILE, ncols - col0);
-    const int ncg = tcols / CG;
-    const int ksplit = NT / ncg;
-    const int kper = (K + ksplit - 1) / ksplit;
-    const int cg = tid % ncg, ks = tid / ncg;
-    if (ks < ksplit) {
-      float acc[BT][CG];
-#pragma unroll
-      for (int r = 0; r < BT; ++r)
-#pragma unroll
-        for (int c = 0; c < CG; ++c) acc[r][c] = 0.0f;
-      const int k0 = ks * kper, k1 = min(K, k0 + kper);
-      const T* p = M + (size_t)k0 * ncols + col0 + cg * CG;
-#pragma unroll 8
-      for (int k = k0; k < k1; ++k, p += ncols) {
-        float w[CG];
-        load8(p, w);
-        const float4 a = a_s[k];
-#pragma unroll
-        for (int c = 0; c < CG; ++c) {
-          acc[0][c] = fmaf(a.x, w[c], acc[0][c]);
-          acc[1][c] = fmaf(a.y, w[c], acc[1][c]);
-          acc[2][c] = fmaf(a.z, w[c], acc[2][c]);
-          acc[3][c] = fmaf(a.w, w[c], acc[3][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        float4* dst = reinterpret_cast<float4*>(part_s + (size_t)(ks * BT + r) * tcols + cg * CG);
-        dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < BT * tcols; i += NT) {
-      const int r = i / tcols, c = i % tcols;
-      float s = 0.0f;
-      for (int q = 0; q < ksplit; ++q) s += part_s[(size_t)(q * BT + r) * tcols + c];
-      out_s[(size_t)r * ncols + col0 + c] = s;
-    }
-    __syncthreads();
-  }
-}
 
 // gate values of one (row, unit) from its four preactivation sums, in dt
 template <typename T>
@@ -176,7 +76,7 @@ lstm_scan_fwd_kernel(const T* __restrict__ zx, const T* __restrict__ R, const T*
   __syncthreads();
   for (int s = 0; s < Tn; ++s) {
     const int t = reverse ? Tn - 1 - s : s;
-    block_product<T>(reinterpret_cast<const float4*>(a_s), R, N, N4, part_s, z_s);
+    block_product<T>(reinterpret_cast<const float4*>(a_s), R, N, N4, N4, part_s, z_s, N4, false);
     for (int i = tid; i < BT * N; i += NT) {
       const int r = i / N, u = i % N, row = b0 + r;
       if (row >= B) continue;
@@ -229,7 +129,7 @@ lstm_scan_bwd_kernel(const T* __restrict__ g_hs, const T* __restrict__ g_hT,
       a_s[u * BT + r] = row < B ? to_f<T>(hprev[((size_t)t * B + row) * N + u]) : 0.0f;
     }
     __syncthreads();
-    block_product<T>(reinterpret_cast<const float4*>(a_s), R, N, N4, part_s, z_s);
+    block_product<T>(reinterpret_cast<const float4*>(a_s), R, N, N4, N4, part_s, z_s, N4, false);
     for (int i = tid; i < BT * N; i += NT) {
       const int r = i / N, u = i % N, row = b0 + r;
       float dz[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -256,7 +156,7 @@ lstm_scan_bwd_kernel(const T* __restrict__ g_hs, const T* __restrict__ g_hT,
       for (int g = 0; g < 4; ++g) a_s[(size_t)(g * N + u) * BT + r] = dz[g];
     }
     __syncthreads();
-    block_product<T>(reinterpret_cast<const float4*>(a_s), RT, N4, N, part_s, dh_s);
+    block_product<T>(reinterpret_cast<const float4*>(a_s), RT, N4, N, N, part_s, dh_s, N, false);
   }
   for (int i = tid; i < BT * N; i += NT) {
     const int r = i / N, u = i % N, row = b0 + r;

@@ -5,12 +5,12 @@ lib/seq2seq.py:190-489): a stacked (bi)LSTM encoder, a forward LSTM
 decoder with local additive attention on top, and a weight-tied softmax
 output. Functions take (params, config, tensors) and run on the device
 the tensors live on. Training uses the same decoder teacher-forced
-(`forward_teacher`), differentiated by autograd: its unmasked LSTM scans
-go through the whole-sequence scan kernels (`_train_scan`), its top
-attention layer through the dense per-step body. The windowed teacher
-body, the hand-written teacher backward and the fused teacher kernel of
-the JAX package are not ported yet; like the JAX package with those
-switched off, long lines train dense too.
+(`forward_teacher`): its unmasked LSTM scans go through the
+whole-sequence scan kernels (`_train_scan`), its top attention layer
+through the fused teacher kernels (ops/teacher_kernel.py), the windowed
+scan with the hand-written backward (models/teacher_scan.py) or the
+dense or windowed per-step body under autograd, chosen as the JAX
+package chooses (`_decode_teacher`).
 
 Greedy contract (reference ``decode_batch_greedy``, seq2seq.py:1215-1286):
 the raw softmax is fed back as the next input, the pick is
@@ -27,7 +27,9 @@ from ..ops.attention import attention_step, attention_step_shared, softmax
 from ..ops.lstm import (attention_cell_preact, gate_math, lstm_scan,
                         lstm_step, mm)
 from ..ops.lstm_scan_kernel import fused_scan_supported, lstm_scan_fused
+from ..ops.teacher_kernel import teacher_fused_supported, teacher_top_fused
 from .config import Seq2SeqConfig
+from .teacher_scan import teacher_top_scan
 
 # batch-shared attention window width for greedy decode (see
 # ops/attention.py:attention_step_shared)
@@ -40,6 +42,29 @@ SHARED_WINDOW = 32
 # package, so the serving decode paths stay byte-stable against the
 # golden corpus.
 _FUSED_TRAIN_SCAN = 'auto'
+# Teacher-forced attention mode: 'auto' uses the windowed carry (aw,
+# astart through `_windowed_attention`: only the +-window_width visible
+# rows are read, identical to the dense masked energies since everything
+# else is masked to -1e30 anyway) whenever the model has a local window
+# and the line is at least _TEACHER_WINDOWED_MIN_T long; 'dense' forces
+# the full-T energies; 'windowed' forces the carry. The threshold is the
+# JAX package's (measured there, on its own hardware), kept so that both
+# packages dispatch alike; it is not a measurement on a GPU.
+_TEACHER_ATTENTION = 'auto'
+_TEACHER_WINDOWED_MIN_T = 192
+# Hand-written backward for the windowed teacher-forced top scan
+# (models/teacher_scan.py). 'auto' = for training whenever the windowed
+# path is selected and its cotangent stacks stay within
+# _TEACHER_VJP_STACK_BUDGET bytes; 'on' forces it for any windowed call
+# (and, below the windowed threshold, its dense forward for training);
+# 'off' keeps autograd. The budget is the JAX package's.
+_TEACHER_VJP = 'auto'
+_TEACHER_VJP_STACK_BUDGET = 2.5e9
+# Fused whole-sequence teacher kernels K6/K7 (ops/teacher_kernel.py):
+# 'auto' takes them for training on CUDA tensors where
+# `teacher_fused_supported` says so, 'on' forces `teacher_top_fused` (its
+# plain versions on CPU tensors, for tests), 'off' disables them.
+_TEACHER_KERNEL = 'auto'
 
 
 def _train_scan(xs, w, h0=None, c0=None, reverse=False, mask=None):
@@ -251,12 +276,19 @@ def forward_teacher(params, config: Seq2SeqConfig, enc_input, dec_input,
 def _decode_teacher(params, config, dec_input, states, attended, u,
                     dropout_rng=None, train=False, enc_mask=None):
     """The teacher-forced decoder: whole-sequence scans for the lower
-    layers, then the top attention layer step by step over the full
-    encoder length (the JAX package's dense ``body``).
+    layers, then the top attention layer by one of four routes, chosen
+    like the JAX package's ``_decode_teacher``:
 
-    Autograd keeps every step's (B, T, W) energy tanh for the backward
-    pass, where the JAX package rematerialises it: Td*B*T*W values of
-    the weight dtype at once."""
+    - the fused kernels K6/K7 (`teacher_top_fused`) for training without
+      a padding mask, where `_TEACHER_KERNEL` allows;
+    - `teacher_top_scan` (windowed, hand-written backward) for training
+      of long lines, or when `_TEACHER_VJP` forces it;
+    - the windowed per-step body for forward-only long lines;
+    - the dense per-step body otherwise (eval, padding masks below the
+      windowed threshold, global attention). Under autograd it keeps
+      every step's (B, T, W) energy tanh for the backward pass, where
+      the JAX package rematerialises it: Td*B*T*W values of the weight
+      dtype at once."""
     depth = config.depth
     B, Td, V = dec_input.shape
     out = mm(dec_input, params['char_embedding']['kernel'])
@@ -274,34 +306,94 @@ def _decode_teacher(params, config, dec_input, states, attended, u,
             out = _variational_dropout(out, config, dropout_rng)
     # top layer: attention and cell update per decoder step
     top = params['decoder'][depth - 1]
-    h, c = states[depth - 1]
-    a = torch.zeros(attended.shape[:2], dtype=attended.dtype,
-                    device=attended.device)
+    W, A, ww = config.width, config.attended_size, config.window_width
+    h0, c0 = states[depth - 1]
     masks = None
     if dropping:
         # per-gate masks on the cell input, constant over time
-        in_dim = config.width + config.attended_size
-        masks = (_dropout_keep((4, B, in_dim), config.dropout, dropout_rng,
+        masks = (_dropout_keep((4, B, W + A), config.dropout, dropout_rng,
                                out.device).float()
                  / (1.0 - config.dropout))
-    # the context is a float32 sum over float32 values: convert the
-    # attended sequence once, not once per step
-    attended_f = attended.float()
-    hs = []
-    for t in range(Td):
-        ctx, a = attention_step(top['W_a'], top['v_a'], top['b_UW'],
-                                top['b_v'], h, a, attended_f, u,
-                                config.window_width, mask=enc_mask)
-        cell_in = torch.cat([out[:, t].to(ctx.dtype), ctx], dim=-1)
-        h, c = gate_math(
-            attention_cell_preact(top['cell'], cell_in, h, masks), c)
-        hs.append(h)
-    out2 = torch.stack(hs, dim=1)
+    T_enc = attended.shape[1]
+    WIN = min(2 * ww + 2, T_enc)
+    use_windowed = (ww > 0 and _TEACHER_ATTENTION != 'dense'
+                    and (_TEACHER_ATTENTION == 'windowed'
+                         or T_enc >= _TEACHER_WINDOWED_MIN_T))
+    # the manual backward emits (Td, B, WIN, ~2W) cotangent stacks; at
+    # very large B*Td they dominate device memory, so such shapes keep
+    # autograd through the dense body
+    itemsize = attended.element_size()
+    vjp_stack_bytes = (
+        # du_w/datt_w + dx/dz/dwvec/ctx/h/c stacks in the weight dtype
+        (Td * B * WIN * (W + A) + Td * B * 7 * W) * itemsize
+        # the window index stack
+        + Td * B * WIN * 4
+        # float32 du (B, T, W) + datt (B, T, A) scatter accumulators
+        + B * T_enc * (W + A) * 4)
+    use_manual_vjp = (_TEACHER_VJP != 'off'
+                      and _TEACHER_ATTENTION != 'dense'
+                      and ww > 0
+                      and (use_windowed or (train and _TEACHER_VJP == 'on'))
+                      and (_TEACHER_VJP == 'on'
+                           or (train and vjp_stack_bytes
+                               <= _TEACHER_VJP_STACK_BUDGET)))
+    if train and use_windowed and not use_manual_vjp \
+            and _TEACHER_ATTENTION != 'windowed':
+        # when the manual backward is off or over its budget, train
+        # dense instead of autograd through the windowed gathers
+        use_windowed = False
+    use_kernel = False
+    if train and _TEACHER_KERNEL != 'off' and ww > 0 \
+            and enc_mask is None and _TEACHER_ATTENTION != 'dense':
+        use_kernel = _TEACHER_KERNEL == 'on' or teacher_fused_supported(
+            top, B, Td, T_enc, W, A, has_enc_mask=False, ww=ww)
+    if use_kernel:
+        out2 = teacher_top_fused(top, out, attended, u, h0, c0, masks, ww)
+    elif use_manual_vjp:
+        mask_f = (enc_mask.to(attended.dtype) if enc_mask is not None
+                  else None)
+        out2 = teacher_top_scan(top, out, attended, u, h0, c0, mask_f,
+                                masks, ww, WIN, not use_windowed)
+    else:
+        out2 = _teacher_body(top, out, attended, u, h0, c0, masks, ww,
+                             WIN if use_windowed else 0, enc_mask)
     if config.residual_connections and depth > 1:
         out = out2 + out
     else:
         out = out2
     return _output_probs(params, out)
+
+
+def _teacher_body(top, xs, attended, u, h, c, masks, ww, WIN, enc_mask):
+    """The top layer step by step under autograd: the dense body over
+    the full encoder length, or with `WIN` > 0 the windowed body
+    (`_windowed_attention` carry), which is identical in value since the
+    rows it skips are masked anyway. Returns hs (B, Td, W)."""
+    B = xs.shape[0]
+    dt, dev = attended.dtype, attended.device
+    if WIN:
+        aw = torch.zeros((B, WIN), dtype=dt, device=dev)
+        astart = torch.zeros((B,), dtype=torch.int32, device=dev)
+    else:
+        a = torch.zeros(attended.shape[:2], dtype=dt, device=dev)
+        # the context is a float32 sum over float32 values: convert the
+        # attended sequence once, not once per step
+        attended_f = attended.float()
+    hs = []
+    for t in range(xs.shape[1]):
+        if WIN:
+            ctx, aw, astart = _windowed_attention(
+                top, h, aw, astart, attended, u, ww, SHARED_WINDOW,
+                enc_mask=enc_mask)
+        else:
+            ctx, a = attention_step(top['W_a'], top['v_a'], top['b_UW'],
+                                    top['b_v'], h, a, attended_f, u, ww,
+                                    mask=enc_mask)
+        cell_in = torch.cat([xs[:, t].to(ctx.dtype), ctx], dim=-1)
+        h, c = gate_math(
+            attention_cell_preact(top['cell'], cell_in, h, masks), c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def _greedy_pick(probs):

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
-``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5) is
-compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
-started together), linked into one shared
+``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5,
+``csrc/teacher_scan.cu``: K6 and K7; the last two share
+``csrc/scan_common.cuh``) is compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together), linked into one shared
 library with a plain C interface under ``build/kernels/`` at the repo
 root, and loaded with ``ctypes``. The library's name carries a hash of
-the sources, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built when a module is imported: the first launch
-builds. A failed build raises.
+the sources and headers, so an edited source is rebuilt and an unchanged
+one is reused. Nothing is built when a module is imported: the first
+launch builds. A failed build raises.
 
 Each exported launcher returns ``cudaGetLastError()`` right after its
 launch; ``check`` raises on anything but 0.
@@ -24,7 +25,9 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build', 'kernels')
-SOURCES = ('lstm_step.cu', 'decode_loop.cu', 'lstm_scan.cu')
+SOURCES = ('lstm_step.cu', 'decode_loop.cu', 'lstm_scan.cu',
+           'teacher_scan.cu')
+HEADERS = ('scan_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -39,6 +42,9 @@ SIGNATURES = {
     'lstm_scan_max_width': (I, []),
     'lstm_scan_fwd_launch': (I, [I] + [P] * 8 + [I] * 4 + [P]),
     'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 4 + [P]),
+    'teacher_scan_supported': (I, [I] * 3),
+    'teacher_fwd_launch': (I, [I] + [P] * 17 + [I] * 6 + [P]),
+    'teacher_bwd_launch': (I, [I] + [P] * 24 + [I] * 6 + [P]),
 }
 
 _lock = threading.Lock()
@@ -62,7 +68,7 @@ def _nvcc():
 
 def _source_hash():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), 'rb') as f:
             h.update(f.read())
     return h.hexdigest()[:16]

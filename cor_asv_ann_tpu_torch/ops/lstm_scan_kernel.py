@@ -92,15 +92,19 @@ def lstm_scan_bwd_reference(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs,
     return torch.stack(dzx), dh_c, dc_c
 
 
-def _check(name, tensors, dt, dev):
+def _check(name, tensors, dt, dev, f32_tensors=()):
+    """Raise unless every tensor is contiguous, 16-byte aligned, on `dev`
+    and of dtype `dt` (float32 for `f32_tensors`)."""
     if dt not in _DTYPE_CODES:
         raise ValueError('%s: float32 or bfloat16 expected, got %s'
                          % (name, dt))
-    for t in tensors:
-        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError('%s: contiguous, 16-byte aligned %s tensors '
-                             'on %s expected' % (name, dt, dev))
+    for group, want in ((tensors, dt), (f32_tensors, torch.float32)):
+        for t in group:
+            if t.device != dev or t.dtype != want \
+                    or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError('%s: contiguous, 16-byte aligned %s '
+                                 'tensors on %s expected'
+                                 % (name, want, dev))
 
 
 def _on_cpu(tensors):

@@ -15,9 +15,11 @@ import torch
 
 from cor_asv_ann_tpu_torch.models.config import Seq2SeqConfig, init_params
 from cor_asv_ann_tpu_torch.models.params import params_from_numpy
+from cor_asv_ann_tpu_torch.models import seq2seq
 from cor_asv_ann_tpu_torch.models.seq2seq import encode, ensure_onehot
 from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
 from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
 from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan, lstm_step
 from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import lstm_step_fused
 from cor_asv_ann_tpu_torch.utils.data import CharMapping, lines_to_index_batch
@@ -231,3 +233,189 @@ def test_lstm_scan_kernel_refuses_what_it_cannot_take(dev):
     assert not lsk.fused_scan_supported({'recurrent_kernel': R})
     with pytest.raises(RuntimeError):
         lsk.lstm_scan_fwd(zx, R, h0, c0)
+
+
+def _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks, seed=0):
+    """K6's inputs in its own order (without ww)."""
+    rng = np.random.default_rng(seed)
+
+    def mk(shape, scale, dt=dtype):
+        return (torch.from_numpy(rng.normal(0, scale, shape)
+                                 .astype(np.float32)).to(dt).to(dev))
+
+    zx = mk((Td, B, 4 * W), 1.0, torch.float32)
+    u, att = mk((B, T, W), 0.5), mk((B, T, A), 0.5)
+    Kc, R = mk((A, 4 * W), A ** -0.5), mk((W, 4 * W), W ** -0.5)
+    W_a, v = mk((W, W), W ** -0.5), mk((1, W), 2 * W ** -0.5)
+    b_UW, b_v = mk((1, W), 0.1), mk((1, 1), 0.1, torch.float32)
+    bias = mk((1, 4 * W), 0.1)
+    maskc = (torch.from_numpy(((rng.random((4, B, A)) < 0.8) / 0.8)
+                              .astype(np.float32)).to(dtype).to(dev)
+             if with_masks else
+             torch.ones((4, B, A), dtype=dtype, device=dev))
+    h0, c0 = mk((B, W), 0.2), mk((B, W), 0.2)
+    return [zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0]
+
+
+# (B, Td, T, W, A, ww): odd batches, T != Td, widths that leave threads to
+# split a product's reduction and the flagship's widths
+TEACHER_SHAPES = [(5, 7, 16, 40, 24, 5), (9, 6, 30, 512, 512, 5),
+                  (3, 5, 9, 64, 128, 2)]
+# float32: summation order, expf/tanhf against PyTorch's; bfloat16: an ulp
+# of a gate carried along the sweep. A row whose window centre lies within
+# the third number (relative) of an integer may see another window.
+TEACHER_TOL = {torch.float32: (2e-5, 1e-5, 1e-5),
+               torch.bfloat16: (2e-2, 2e-2, 2e-2)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_masks', [False, True])
+@pytest.mark.parametrize('B,Td,T,W,A,ww', TEACHER_SHAPES)
+def test_teacher_fwd_kernel(dev, dtype, with_masks, B, Td, T, W, A, ww):
+    """K6 against its plain version."""
+    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks)
+    before = tk.teacher_fwd.launches
+    got = tk.teacher_fwd(*ins, ww)
+    torch.cuda.synchronize()
+    assert tk.teacher_fwd.launches == before + 1
+    want = tk.teacher_fwd_reference(*ins, ww)
+    assert all(g.dtype == dtype and g.shape == w.shape
+               for g, w in zip(got, want))
+    _, share = tk.teacher_fwd_agreement(got, want, *TEACHER_TOL[dtype])
+    assert share >= (0.99 if dtype == torch.float32 else 0.9)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('with_masks', [False, True])
+@pytest.mark.parametrize('B,Td,T,W,A,ww', TEACHER_SHAPES)
+def test_teacher_bwd_kernel(dev, dtype, with_masks, B, Td, T, W, A, ww):
+    """K7 against its plain version on the residuals the plain K6 saved."""
+    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks, seed=1)
+    zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
+    hs, cs, aa, zs = tk.teacher_fwd_reference(*ins, ww)
+    hprev, cprev = _shift(hs, h0, False), _shift(cs, c0, False)
+    g = (torch.from_numpy(np.random.default_rng(2).normal(0, 0.1, hs.shape)
+                          .astype(np.float32)).to(dtype).to(dev))
+    args = (zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW, maskc,
+            ww)
+    before = tk.teacher_bwd.launches
+    got = tk.teacher_bwd(*args)
+    torch.cuda.synchronize()
+    assert tk.teacher_bwd.launches == before + 1
+    want = tk.teacher_bwd_reference(*args)
+    atol, rtol, _ = TEACHER_TOL[dtype]
+    for k, (g_, w) in enumerate(zip(got, want)):
+        assert g_.dtype == (dtype if k < 4 else torch.float32)
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g_.float() / scale, w.float() / scale,
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize('with_masks', [False, True])
+def test_teacher_autograd_matches_dense_body(dev, with_masks):
+    """TeacherTopFused (K6 + K7 + the outside contractions) against
+    autograd through the dense per-step body in float32."""
+    B, Td, T, W, A, ww = 9, 10, 20, 40, 24, 5
+    rng = np.random.default_rng(3)
+
+    def leaf(*shape, scale=0.18):
+        return (torch.from_numpy(rng.normal(0, scale, shape)
+                                 .astype(np.float32)).to(dev)
+                .requires_grad_())
+
+    top = {'W_a': leaf(W, W), 'v_a': leaf(W, 1), 'b_UW': leaf(W),
+           'b_v': leaf(1),
+           'cell': {'kernel': leaf(W + A, 4 * W),
+                    'recurrent_kernel': leaf(W, 4 * W),
+                    'bias': leaf(4 * W)}}
+    xs, att, u = leaf(B, Td, W), leaf(B, T, A), leaf(B, T, W)
+    h0, c0 = leaf(B, W), leaf(B, W)
+    masks = (torch.from_numpy(((rng.random((4, B, W + A)) < 0.8) / 0.8)
+                              .astype(np.float32)).to(dev)
+             if with_masks else None)
+    leaves = [top['W_a'], top['v_a'], top['b_UW'], top['b_v'],
+              *top['cell'].values(), xs, att, u, h0, c0]
+    assert tk.teacher_fused_supported(top, B, Td, T, W, A, False, ww)
+    before = tk.teacher_fwd.launches, tk.teacher_bwd.launches
+    out = tk.teacher_top_fused(top, xs, att, u, h0, c0, masks, ww)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    assert (tk.teacher_fwd.launches, tk.teacher_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = seq2seq._teacher_body(top, xs, att, u, h0, c0, masks, ww, 0, None)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    want = torch.autograd.grad((ref ** 2).sum(), leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-4)
+
+
+def test_teacher_kernel_refuses_what_it_cannot_take(dev):
+    ins = _teacher_inputs(dev, torch.float32, 3, 4, 9, 16, 24, False)
+    ok = tk.teacher_fwd(*ins, 2)
+    assert ok[0].shape == (4, 3, 16)
+    # a non-contiguous tensor
+    bad = list(ins)
+    bad[1] = ins[1].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        tk.teacher_fwd(*bad, 2)
+    # a misaligned one: a view that starts 4 bytes into its storage
+    bad = list(ins)
+    bad[2] = torch.zeros(ins[2].numel() + 1, device=dev)[1:].view_as(ins[2])
+    with pytest.raises(ValueError):
+        tk.teacher_fwd(*bad, 2)
+    # mixed devices, a dtype the kernels do not take, shapes that disagree
+    bad = list(ins)
+    bad[4] = ins[4].cpu()
+    with pytest.raises(ValueError):
+        tk.teacher_fwd(*bad, 2)
+    with pytest.raises(ValueError):
+        tk.teacher_fwd(ins[0], *(t.double() for t in ins[1:]), 2)
+    bad = list(ins)
+    bad[11] = ins[11][:2].contiguous()
+    with pytest.raises(ValueError):
+        tk.teacher_fwd(*bad, 2)
+    # the gate: widths, window, padding mask
+    top = {'cell': {'recurrent_kernel': ins[4]}}
+    assert tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, False, 2)
+    assert tk.teacher_fused_supported(top, 256, 128, 128, 512, 512, False)
+    assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, True, 2)
+    assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, False, 0)
+    assert not tk.teacher_fused_supported(top, 3, 4, 9, 12, 24, False, 2)
+    assert not tk.teacher_fused_supported(top, 3, 4, 9, 2048, 2048, False)
+    # a width that is no multiple of 8: the launcher reports it
+    ins12 = _teacher_inputs(dev, torch.float32, 3, 4, 9, 12, 24, False)
+    with pytest.raises(RuntimeError):
+        tk.teacher_fwd(*ins12, 2)
+
+
+@pytest.mark.parametrize('compute', [None, 'bfloat16'])
+def test_train_step_goes_through_the_teacher_kernels(dev, compute):
+    """One K6 and one K7 launch per train_step without a padding mask,
+    none with one, none with the kernels switched off."""
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import tree_map
+    rng = np.random.default_rng(5)
+    B, Tn, V = 6, 12, 14
+    idx = rng.integers(1, V, size=(B, Tn))
+    enc = np.eye(V, dtype=np.float32)[idx]
+    dec_in = np.concatenate([np.zeros((B, 1, V), np.float32), enc], axis=1)
+    dec_out = np.concatenate([enc, np.zeros((B, 1, V), np.float32)], axis=1)
+    weights = (dec_out.sum(-1) > 0).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    for mask_padding, mode, want in ((False, 'auto', 1), (True, 'auto', 0),
+                                     (False, 'off', 0)):
+        config = Seq2SeqConfig(width=64, depth=2, voc_size=V,
+                               mask_padding=mask_padding)
+        params = tree_map(lambda t: t.requires_grad_(),
+                          params_from_numpy(init_params(config, seed=1),
+                                            dev))
+        opt = T.make_optimizer(params)
+        before = tk.teacher_fwd.launches, tk.teacher_bwd.launches
+        seq2seq._TEACHER_KERNEL = mode
+        try:
+            loss = T.train_step(params, opt, config, enc, dec_in, dec_out,
+                                weights, gen, compute_dtype=compute)
+        finally:
+            seq2seq._TEACHER_KERNEL = 'auto'
+        assert bool(torch.isfinite(loss))
+        assert (tk.teacher_fwd.launches - before[0],
+                tk.teacher_bwd.launches - before[1]) == (want, want)

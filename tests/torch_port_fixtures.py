@@ -1,4 +1,5 @@
-"""Fixtures shared by the PyTorch port's test modules (tests/test_torch_*.py).
+"""Fixtures and helpers shared by the PyTorch port's test modules
+(tests/test_torch_*.py).
 
 Import the fixture into a test module to apply it there:
 
@@ -8,6 +9,19 @@ Import the fixture into a test module to apply it there:
 import pytest
 import threadpoolctl
 import torch
+
+# the leaves a teacher-forced top scan is differentiated by, in the order
+# of `teacher_leaves`
+TEACHER_LEAVES = ('W_a', 'v_a', 'b_UW', 'b_v', 'kernel', 'recurrent_kernel',
+                  'bias', 'xs', 'att', 'u', 'h0', 'c0')
+
+
+def teacher_leaves(top, xs, att, u, h0, c0):
+    """The top layer's parameters and the scan's inputs as a flat list
+    (arrays or tensors, of either package)."""
+    c = top['cell']
+    return [top['W_a'], top['v_a'], top['b_UW'], top['b_v'], c['kernel'],
+            c['recurrent_kernel'], c['bias'], xs, att, u, h0, c0]
 
 
 @pytest.fixture(autouse=True, scope='module')

@@ -12,8 +12,10 @@ float32 at B=256 (``decode_greedy``) and bfloat16 at B=16 (the
 whole-loop kernel). With ``--train`` it takes one ``train_step`` of a
 randomly initialised d2/w512 model at B=256, T=Td=128 on synthetic
 lines, without masked padding (all four LSTM scans through the scan
-kernels), in float32 and bfloat16, and in bfloat16 once more with the
-scan kernels switched off. For each regime it prints the wall time
+kernels, the top decoder layer through the fused teacher kernels), in
+float32 and bfloat16, in bfloat16 with the teacher kernels switched off
+(the dense per-step body under autograd), and with the scan kernels
+switched off as well. For each regime it prints the wall time
 under the profiler, the device busy time summed over kernels (so the
 idle share of the device), the kernel launch count and the top kernels
 by device time, from ``torch.profiler``. Writes each trace as a chrome
@@ -88,16 +90,19 @@ def profile_training(torch, out_dir):
     enc, dec_in, dec_out = (np.pad(a, pad, constant_values=-1)
                             for a in (enc, dec_in, dec_out))
     batch = (enc, dec_in, dec_out, np.pad(w, pad))
-    for name, compute, scan in (('train_f32', None, 'auto'),
-                                ('train_bf16', 'bfloat16', 'auto'),
-                                ('train_bf16_plain_scan', 'bfloat16',
-                                 'off')):
+    for name, compute, scan, teacher in (
+            ('train_f32', None, 'auto', 'auto'),
+            ('train_bf16', 'bfloat16', 'auto', 'auto'),
+            ('train_bf16_dense_teacher', 'bfloat16', 'auto', 'off'),
+            ('train_bf16_dense_teacher_plain_scan', 'bfloat16', 'off',
+             'off')):
         params = tree_map(lambda t: t.requires_grad_(),
                           params_from_numpy(init_params(config, seed=1),
                                             'cuda'))
         opt = T.make_optimizer(params)
         gen = torch.Generator().manual_seed(0)
         seq2seq._FUSED_TRAIN_SCAN = scan
+        seq2seq._TEACHER_KERNEL = teacher
         try:
             profile(torch,
                     lambda: T.train_step(params, opt, config, *batch, gen,
@@ -105,6 +110,7 @@ def profile_training(torch, out_dir):
                     256, name, out_dir)
         finally:
             seq2seq._FUSED_TRAIN_SCAN = 'auto'
+            seq2seq._TEACHER_KERNEL = 'auto'
 
 
 def main():
