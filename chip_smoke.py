@@ -557,7 +557,8 @@ def long_line_steps(torch, dev, data, batch, launches_of):
         teacher = 1 if mode == 'auto' else 0
         check(all(np.isfinite(losses)), 'T=128 %s: loss not finite: %s'
               % (mode, losses))
-        check(per_step['teacher_fwd'] == per_step['teacher_bwd'] == teacher,
+        check(per_step['teacher_fwd'] == per_step['teacher_bwd'] == teacher
+              and per_step['lstm_scan_fwd'] == per_step['lstm_scan_bwd'] == 4,
               'T=128 with _TEACHER_KERNEL=%r: launches per step %s'
               % (mode, per_step))
         name = 'keras_padding_bfloat16_T128_teacher_kernel_' + mode
@@ -687,7 +688,9 @@ def train_path(torch, dev, tmp, launches_of):
 
 def scan_times(torch, dev, dt):
     """K4 and K5 at the flagship shape: kernel, plain version, bound and
-    the cuDNN LSTM as the library yardstick."""
+    the cuDNN LSTM as the library yardstick, timed in turns with the
+    kernel (cuDNN, kernel, kernel, cuDNN): cuDNN's time moves between
+    calls far more than the kernels'."""
     from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
     T, B, N = SCAN_SHAPES[0]
     zx, R, h0, c0 = _scan_inputs(torch, dev, dt, T, B, N, 6)
@@ -697,11 +700,35 @@ def scan_times(torch, dev, dt):
     bwd_args = (g, g[0], g[0], zx, R, hprev, cprev, cs)
     size = zx.element_size()
     name = _dtype_name(dt)
+    # torch.nn.LSTM (cuDNN) with the same recurrent weights: it includes
+    # the input projection (D = N) that the kernels leave outside, and
+    # its backward also forms both weight gradients
+    lstm = torch.nn.LSTM(N, N).to(dev).to(dt)
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(R.t())
+    x = torch.randn(T, B, N, device=dev).to(dt).requires_grad_()
+    state = (h0[None], c0[None])
+    y, _ = lstm(x, state)
+    leaves = [x, *lstm.parameters()]
+
+    def lib_fwd():
+        with torch.no_grad():
+            lstm(x, state)
+
+    def in_turns(kernel, library):
+        lib_a = cuda_time_ms(library, 5)
+        k_a, k_b = cuda_time_ms(kernel, 5), cuda_time_ms(kernel, 5)
+        lib_b = cuda_time_ms(library, 5)
+        return (k_a + k_b) / 2, (lib_a + lib_b) / 2, [lib_a, k_a, k_b, lib_b]
+
     out = {}
-    out['fwd_ms'] = cuda_time_ms(lambda: lsk.lstm_scan_fwd(zx, R, h0, c0), 5)
+    out['fwd_ms'], out['fwd_library_ms'], out['fwd_turns_ms'] = in_turns(
+        lambda: lsk.lstm_scan_fwd(zx, R, h0, c0), lib_fwd)
     out['fwd_plain_ms'] = cuda_time_ms(
         lambda: lsk.lstm_scan_fwd_reference(zx, R, h0, c0), 2)
-    out['bwd_ms'] = cuda_time_ms(lambda: lsk.lstm_scan_bwd(*bwd_args), 5)
+    out['bwd_ms'], out['bwd_library_ms'], out['bwd_turns_ms'] = in_turns(
+        lambda: lsk.lstm_scan_bwd(*bwd_args),
+        lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
     out['bwd_plain_ms'] = cuda_time_ms(
         lambda: lsk.lstm_scan_bwd_reference(*bwd_args), 2)
     product = 2 * T * B * N * 4 * N
@@ -716,31 +743,56 @@ def scan_times(torch, dev, dt):
                         + 2 * B * N) + 4 * 2 * B * N
     out['bwd_bound_ms'], out['bwd_bound_by'] = bound(bwd_bytes, 2 * product,
                                                      name)
-    # torch.nn.LSTM (cuDNN) with the same recurrent weights: it includes
-    # the input projection (D = N) that the kernels leave outside, and
-    # its backward also forms both weight gradients
-    lstm = torch.nn.LSTM(N, N).to(dev).to(dt)
-    with torch.no_grad():
-        lstm.weight_hh_l0.copy_(R.t())
-    x = torch.randn(T, B, N, device=dev).to(dt).requires_grad_()
-    state = (h0[None], c0[None])
-    with torch.no_grad():
-        out['fwd_library_ms'] = cuda_time_ms(lambda: lstm(x, state), 5)
-    y, _ = lstm(x, state)
-    leaves = [x, *lstm.parameters()]
-    out['bwd_library_ms'] = cuda_time_ms(
-        lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), 5)
+    for kind in ('fwd', 'bwd'):
+        out[kind + '_plan'] = lsk.scan_plan(kind, dt, B, N)
     print('K4 %s T=%d B=%d N=%d: kernel %.3f ms, plain %.3f ms, cuDNN LSTM '
-          'forward (with the input projection) %.3f ms, bound %.4f ms (%s)'
+          'forward (with the input projection) %.3f ms, bound %.4f ms (%s); '
+          'turns cuDNN/kernel/kernel/cuDNN %s'
           % (name, T, B, N, out['fwd_ms'], out['fwd_plain_ms'],
              out['fwd_library_ms'], out['fwd_bound_ms'],
-             out['fwd_bound_by']))
+             out['fwd_bound_by'], _ms_list(out['fwd_turns_ms'])))
     print('K5 %s T=%d B=%d N=%d: kernel %.3f ms, plain %.3f ms, cuDNN LSTM '
           'backward (with both weight gradients) %.3f ms, bound %.4f ms '
-          '(%s)' % (name, T, B, N, out['bwd_ms'], out['bwd_plain_ms'],
-                    out['bwd_library_ms'], out['bwd_bound_ms'],
-                    out['bwd_bound_by']))
+          '(%s); turns cuDNN/kernel/kernel/cuDNN %s'
+          % (name, T, B, N, out['bwd_ms'], out['bwd_plain_ms'],
+             out['bwd_library_ms'], out['bwd_bound_ms'],
+             out['bwd_bound_by'], _ms_list(out['bwd_turns_ms'])))
     return out
+
+
+def _ms_list(values):
+    return '/'.join('%.3f' % v for v in values)
+
+
+def scan_plans(torch):
+    """The grid the K4/K5 launcher picks at the flagship shape and the
+    resources nvcc gave each kernel (registers, spills)."""
+    from cor_asv_ann_tpu_torch.ops import _build
+    from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+    T, B, N = SCAN_SHAPES[0]
+    for kind, k in (('fwd', 'K4'), ('bwd', 'K5')):
+        for dt in (torch.bfloat16, torch.float32):
+            p = lsk.scan_plan(kind, dt, B, N)
+            print('%s %s B=%d N=%d: G=%d row groups x S=%d unit slices = '
+                  '%d blocks of 256 threads, %d rows x %d units a block, '
+                  'reduction chunk %d, R resident %s, %d bytes of shared '
+                  'memory, %d launch(es)'
+                  % (k, _dtype_name(dt), B, N, p['groups'], p['slices'],
+                     p['groups'] * p['slices'], p['rows_per_group'],
+                     p['units_per_slice'], p['chunk'],
+                     {0: 'none', 1: 'gate columns', 2: 'rows',
+                      3: 'gate columns and rows'}[p['resident']],
+                     p['smem_bytes'], p['launches']))
+    entry = None
+    for line in _build.build_log.splitlines():
+        if 'Compiling entry function' in line:
+            entry = line.split("'")[1]
+        elif entry and 'lstm_scan' in entry and ('spill' in line
+                                                  or 'Used' in line):
+            kernel = ('K4' if 'fwd' in entry else 'K5') + (
+                ' bf16' if 'bfloat16' in entry else ' f32')
+            print('  %s: %s' % (kernel, line.strip().replace(
+                'ptxas info    : ', '')))
 
 
 def teacher_times(torch, dev, dt):
@@ -1168,6 +1220,7 @@ def main():
     for line in _build.build_log.splitlines():
         if 'registers' in line or line.startswith('=='):
             print('  ' + line.strip())
+    scan_plans(torch)
 
     goldens = load_json('tests', 'golden_decodes.json')
     golden_corpus = load_json('tests', 'golden_corpus.json')

@@ -3,7 +3,8 @@
 Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
 ``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5,
 ``csrc/teacher_scan.cu``: K6 and K7, ``csrc/decode_step.cu``: K3; the
-last three share ``csrc/scan_common.cuh``) is compiled by ``nvcc`` for
+last three share ``csrc/scan_common.cuh``, K4 and K5 also use
+``csrc/scan_grid.cuh``) is compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into
 one shared library with a plain C interface under ``build/kernels/`` at
 the repo root, and loaded with ``ctypes``. The library's name carries a hash of
@@ -27,7 +28,7 @@ CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build', 'kernels')
 SOURCES = ('lstm_step.cu', 'decode_loop.cu', 'lstm_scan.cu',
            'teacher_scan.cu', 'decode_step.cu')
-HEADERS = ('scan_common.cuh',)
+HEADERS = ('scan_common.cuh', 'scan_grid.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -40,8 +41,9 @@ SIGNATURES = {
     'decode_loop_smem_bytes': (ctypes.c_longlong, [I] * 4),
     'decode_loop_launch': (I, [P] * 19 + [P] * 4 + [I] * 8 + [P]),
     'lstm_scan_max_width': (I, []),
-    'lstm_scan_fwd_launch': (I, [I] + [P] * 8 + [I] * 4 + [P]),
-    'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 4 + [P]),
+    'lstm_scan_plan': (I, [I] * 6 + [P]),
+    'lstm_scan_fwd_launch': (I, [I] + [P] * 9 + [I] * 6 + [P]),
+    'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 6 + [P]),
     'teacher_scan_supported': (I, [I] * 3),
     'teacher_fwd_launch': (I, [I] + [P] * 17 + [I] * 6 + [P]),
     'teacher_bwd_launch': (I, [I] + [P] * 24 + [I] * 6 + [P]),

@@ -13,9 +13,12 @@ b`` and the weight gradient ``dR = hprev^T . dzx`` are plain matrix
 products outside the kernels.
 
 The TPU kernels pad the batch to tiles of 16 rows and need ``width %
-128 == 0`` and a VMEM budget. The CUDA kernels take any batch and any
-T >= 1; their scratch in shared memory grows with the width, which has
-to be a multiple of 8 (16-byte loads) up to ``lstm_scan_max_width()``.
+128 == 0`` and a VMEM budget. The CUDA kernels take any batch, any T >= 1
+and a width that is a multiple of 8 up to ``lstm_scan_max_width()``: one
+cooperative launch of row groups x unit slices, each block holding its
+slice of R in shared memory for the whole sweep; the blocks of a row
+group meet at a counter (``_group_counters``, zeroed per launch) once a
+step. ``scan_plan`` shows how the launcher splits a sweep over the card.
 
 ``lstm_scan_fwd_reference`` and ``lstm_scan_bwd_reference`` are the
 plain versions: step-by-step PyTorch transcriptions of the two Pallas
@@ -23,6 +26,8 @@ bodies with the same rounding points. The wrappers ``lstm_scan_fwd`` and
 ``lstm_scan_bwd`` take them for CPU tensors only; for CUDA tensors they
 launch the kernels or raise.
 """
+
+import ctypes
 
 import torch
 
@@ -116,12 +121,47 @@ def lstm_scan_max_width():
     return _build.library().lstm_scan_max_width()
 
 
-def lstm_scan_fwd(zx, R, h0, c0, reverse=False):
-    """K4: hs, cs (T, B, N), hT, cT (B, N) from zx (T, B, 4N), R (N, 4N)
-    and h0/c0 (B, N) of one dtype on one device."""
+_PLAN_KEYS = ('groups', 'slices', 'rows_per_group', 'units_per_slice',
+              'chunk', 'resident', 'smem_bytes', 'launches')
+
+
+def scan_plan(kind, dtype, B, N, rows_per_group=0, units_per_slice=0):
+    """How the launcher splits a sweep over the card (kind 'fwd': K4,
+    'bwd': K5): row groups and unit slices of one cooperative launch, their
+    sizes, the reduction chunk, what of R stays in shared memory (bit 0:
+    the gate columns, bit 1: the rows), shared memory per block and the
+    launches over the batch. `rows_per_group`/`units_per_slice` impose
+    them, as the tests do."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = _build.library().lstm_scan_plan(
+        ('fwd', 'bwd').index(kind), _DTYPE_CODES[dtype], B, N,
+        rows_per_group, units_per_slice, out)
+    _build.check(err, 'lstm_scan plan (B=%d N=%d)' % (B, N))
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def _group_counters(B, dev):
+    """The kernels' barrier: one zeroed counter per possible row group
+    (a group holds at least 16 rows)."""
+    return torch.zeros(-(-B // 16), dtype=torch.int32, device=dev)
+
+
+def _views(buf, reverse):
+    """(hs, hprev) of a (T+1, B, N) buffer that holds a sweep's states and,
+    at the end the sweep starts from, its initial state."""
+    return (buf[:-1], buf[1:]) if reverse else (buf[1:], buf[:-1])
+
+
+def _scan_fwd(zx, R, h0, c0, reverse, rows_per_group=0, units_per_slice=0):
+    """K4 with hs and cs written into (T+1, B, N) buffers whose other slot
+    holds h0, c0, so that the backward's hprev and cprev are views, not
+    copies. Returns hbuf, cbuf, hT, cT."""
     tensors = (zx, R, h0, c0)
     if _on_cpu(tensors):
-        return lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+        hs, cs, hT, cT = lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+        ends = (lambda s, s0: torch.cat([s, s0[None]]) if reverse
+                else torch.cat([s0[None], s]))
+        return ends(hs, h0), ends(cs, c0), hT, cT
     dt, dev = R.dtype, R.device
     if dev.type != 'cuda':
         raise ValueError('lstm_scan_fwd: tensors must all be on one CUDA '
@@ -131,18 +171,32 @@ def lstm_scan_fwd(zx, R, h0, c0, reverse=False):
     N = N4 // 4
     if R.shape != (N, N4) or h0.shape != (B, N) or c0.shape != (B, N):
         raise ValueError('lstm_scan_fwd: inconsistent shapes')
-    hs = torch.empty((T, B, N), dtype=dt, device=dev)
-    cs = torch.empty((T, B, N), dtype=dt, device=dev)
+    hbuf = torch.empty((T + 1, B, N), dtype=dt, device=dev)
+    cbuf = torch.empty((T + 1, B, N), dtype=dt, device=dev)
+    start = T if reverse else 0
+    hbuf[start].copy_(h0)
+    cbuf[start].copy_(c0)
+    hs, cs = _views(hbuf, reverse)[0], _views(cbuf, reverse)[0]
     hT = torch.empty((B, N), dtype=dt, device=dev)
     cT = torch.empty((B, N), dtype=dt, device=dev)
     err = _build.library().lstm_scan_fwd_launch(
         _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors), hs.data_ptr(),
-        cs.data_ptr(), hT.data_ptr(), cT.data_ptr(), T, B, N, int(reverse),
-        _build.stream_of(zx))
+        cs.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+        _group_counters(B, dev).data_ptr(), T, B, N, int(reverse),
+        rows_per_group, units_per_slice, _build.stream_of(zx))
     _build.check(err, 'lstm_scan forward kernel (T=%d B=%d N=%d)'
                  % (T, B, N))
     lstm_scan_fwd.launches += 1
-    return hs, cs, hT, cT
+    return hbuf, cbuf, hT, cT
+
+
+def lstm_scan_fwd(zx, R, h0, c0, reverse=False):
+    """K4: hs, cs (T, B, N), hT, cT (B, N) from zx (T, B, 4N), R (N, 4N)
+    and h0/c0 (B, N) of one dtype on one device."""
+    if _on_cpu((zx, R, h0, c0)):
+        return lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+    hbuf, cbuf, hT, cT = _scan_fwd(zx, R, h0, c0, reverse)
+    return _views(hbuf, reverse)[0], _views(cbuf, reverse)[0], hT, cT
 
 
 lstm_scan_fwd.launches = 0
@@ -166,16 +220,13 @@ def lstm_scan_bwd(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse=False):
                                  (g_hs, hprev, cprev, cs)) \
             or g_hT.shape != (B, N) or g_cT.shape != (B, N):
         raise ValueError('lstm_scan_bwd: inconsistent shapes')
-    # the kernel's second product, dz.R^T, walks R^T row by row
-    Rt = R.t().contiguous()
     dzx = torch.empty((T, B, N4), dtype=dt, device=dev)
     dh0 = torch.empty((B, N), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, N), dtype=torch.float32, device=dev)
     err = _build.library().lstm_scan_bwd_launch(
-        _DTYPE_CODES[dt], g_hs.data_ptr(), g_hT.data_ptr(), g_cT.data_ptr(),
-        zx.data_ptr(), R.data_ptr(), Rt.data_ptr(), hprev.data_ptr(),
-        cprev.data_ptr(), cs.data_ptr(), dzx.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), T, B, N, int(reverse), _build.stream_of(zx))
+        _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors), dzx.data_ptr(),
+        dh0.data_ptr(), dc0.data_ptr(), _group_counters(B, dev).data_ptr(),
+        T, B, N, int(reverse), 0, 0, _build.stream_of(zx))
     _build.check(err, 'lstm_scan backward kernel (T=%d B=%d N=%d)'
                  % (T, B, N))
     lstm_scan_bwd.launches += 1
@@ -188,36 +239,32 @@ lstm_scan_bwd.launches = 0
 class LstmScan(torch.autograd.Function):
     """(zx, R, h0, c0) -> (hs, hT, cT), differentiable through K4 and K5
     (their plain versions for CPU tensors). The cell states are saved for
-    the backward and not an output (JAX ``_scan_core``)."""
+    the backward and not an output (JAX ``_scan_core``); hs and cs are
+    saved with the initial state beside them, so that the state each step
+    started from is a view."""
 
     @staticmethod
     def forward(ctx, zx, R, h0, c0, reverse):
-        hs, cs, hT, cT = lstm_scan_fwd(zx, R, h0, c0, reverse)
-        ctx.save_for_backward(zx, R, h0, c0, hs, cs)
+        hbuf, cbuf, hT, cT = _scan_fwd(zx, R, h0, c0, reverse)
+        ctx.save_for_backward(zx, R, hbuf, cbuf)
         ctx.reverse = reverse
-        return hs, hT, cT
+        return _views(hbuf, reverse)[0], hT, cT
 
     @staticmethod
     def backward(ctx, g_hs, g_hT, g_cT):
-        zx, R, h0, c0, hs, cs = ctx.saved_tensors
+        zx, R, hbuf, cbuf = ctx.saved_tensors
         reverse = ctx.reverse
         T, B, N4 = zx.shape
         dt = R.dtype
-        # the state each step started from: its neighbour in the order
-        # the forward walked time, h0/c0 at the forward's first step
-        if reverse:
-            hprev = torch.cat([hs[1:], h0[None]], dim=0)
-            cprev = torch.cat([cs[1:], c0[None]], dim=0)
-        else:
-            hprev = torch.cat([h0[None], hs[:-1]], dim=0)
-            cprev = torch.cat([c0[None], cs[:-1]], dim=0)
+        hs, hprev = _views(hbuf, reverse)
+        cs, cprev = _views(cbuf, reverse)
 
         def cot(g, like):
             return (torch.zeros_like(like) if g is None
                     else g.to(dt).contiguous())
 
         dzx, dh0, dc0 = lstm_scan_bwd(
-            cot(g_hs, hs), cot(g_hT, h0), cot(g_cT, c0), zx, R, hprev,
+            cot(g_hs, hs), cot(g_hT, hs[0]), cot(g_cT, cs[0]), zx, R, hprev,
             cprev, cs, reverse)
         # the weight gradient as one product over all T*B rows, float32
         # accumulation rounded to the weight dtype

@@ -1,20 +1,28 @@
 // Stand-in for <cuda_runtime.h> that lets a host C++20 compiler build the
-// port's scan kernels (csrc/lstm_scan.cu, csrc/teacher_scan.cu) and run them on
-// the CPU: one OS thread per CUDA thread, __syncthreads as a barrier over the
-// block, warp shuffles through a per-warp exchange buffer, the blocks of a grid
-// one after another. It knows only the constructs those sources use. The
-// launch syntax `kernel<<<grid, threads, smem, stream>>>(args)` and the
-// `extern __shared__` declaration are rewritten by tests/test_torch_kernel_emulation.py
-// (to emu::launch and emu::smem) before compiling.
+// port's scan kernels (csrc/lstm_scan.cu, csrc/teacher_scan.cu,
+// csrc/decode_step.cu) and run them on the CPU: one OS thread per CUDA thread,
+// __syncthreads as a barrier over the block, warp shuffles and the bf16
+// tensor-core instruction through a per-warp exchange buffer. The blocks of a
+// `<<<...>>>` launch run one after another; the blocks of a cooperative launch
+// (cudaLaunchCooperativeKernel) all at once, on a card of EMU_SM_COUNT SMs
+// that holds one block per SM, so that blocks can wait on each other through
+// a counter in global memory (release adds, acquire loads). It knows only the constructs
+// those sources use. The launch syntax `kernel<<<grid, threads, smem,
+// stream>>>(args)` and the `extern __shared__` declaration are rewritten by
+// tests/test_torch_kernel_emulation.py (to emu::launch and emu::smem) before
+// compiling.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <memory>
 #include <thread>
+#include <tuple>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -34,17 +42,51 @@ struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorCooperativeLaunchTooLarge = 720 };
 typedef void* cudaStream_t;
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
 constexpr int EMU_MAX_SMEM = 232448;  // what a Hopper block can opt in to
+// few SMs, so that the tests' grids have several row groups and unit slices
+// with few OS threads
+constexpr int EMU_SM_COUNT = 6;
 
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes <= EMU_MAX_SMEM ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = EMU_MAX_SMEM; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? EMU_SM_COUNT : EMU_MAX_SMEM;
+  return cudaSuccess;
+}
+// one block per SM, if its shared memory fits
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t smem) {
+  *n = smem <= (size_t)EMU_MAX_SMEM ? 1 : 0;
+  return cudaSuccess;
+}
+
+// cp.async of 16 bytes, done at once (the waits are no-ops)
+inline void cp_async16_standin(void* dst, const void* src, bool valid) {
+  if (valid)
+    std::memcpy(dst, src, 16);
+  else
+    std::memset(dst, 0, 16);
+}
+
+// the release add and acquire load (red.release.gpu / ld.acquire.gpu) of a
+// counter in global memory shared between blocks
+inline void red_release_add_standin(int* p, int v) {
+  std::atomic_ref<int>(*p).fetch_add(v, std::memory_order_release);
+}
+inline int ld_acquire_standin(const int* p) {
+  std::this_thread::yield();  // a spinning block leaves the cores to the others
+  return std::atomic_ref<int>(*const_cast<int*>(p)).load(std::memory_order_acquire);
+}
 
 namespace emu {
 
@@ -52,34 +94,58 @@ struct Block {
   std::unique_ptr<std::barrier<>> bar;                 // __syncthreads
   std::vector<std::unique_ptr<std::barrier<>>> wbar;   // one per warp
   std::vector<uint32_t> xch;                           // shuffle exchange, one word per thread
+  std::vector<uint32_t> mma;                           // mma fragments, 6 words per thread
   std::vector<float4> smem;                            // dynamic shared memory
 };
 extern thread_local Block* cur;
 
 inline float4* smem() { return cur->smem.data(); }
 
-template <class K, class... A>
-void launch(int grid, int nt, size_t smem_bytes, K kernel, A... args) {
-  for (int b = 0; b < grid; ++b) {
-    Block blk;
-    blk.bar = std::make_unique<std::barrier<>>(nt);
-    for (int w = 0; w < nt / 32; ++w) blk.wbar.push_back(std::make_unique<std::barrier<>>(32));
-    blk.xch.assign(nt, 0);
-    // poisoned, so that a read of scratch that was never written shows
-    blk.smem.assign(smem_bytes / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
-    std::vector<std::thread> threads;
+inline std::unique_ptr<Block> new_block(int nt, size_t smem_bytes) {
+  auto blk = std::make_unique<Block>();
+  blk->bar = std::make_unique<std::barrier<>>(nt);
+  for (int w = 0; w < nt / 32; ++w) blk->wbar.push_back(std::make_unique<std::barrier<>>(32));
+  blk->xch.assign(nt, 0);
+  blk->mma.assign((size_t)nt * 6, 0);
+  // poisoned, so that a read of scratch that was never written shows
+  blk->smem.assign(smem_bytes / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
+  return blk;
+}
+
+// blocks [b0, b1) of a grid, all at once; body() runs the kernel
+template <class Body> void run_blocks(int b0, int b1, int nt, size_t smem_bytes, Body body) {
+  std::vector<std::unique_ptr<Block>> blocks;
+  for (int b = b0; b < b1; ++b) blocks.push_back(new_block(nt, smem_bytes));
+  std::vector<std::thread> threads;
+  for (int b = b0; b < b1; ++b)
     for (int t = 0; t < nt; ++t)
-      threads.emplace_back([&, t] {
+      threads.emplace_back([&, b, t] {
         threadIdx.x = t;
         blockIdx.x = b;
-        cur = &blk;
-        kernel(args...);
+        cur = blocks[b - b0].get();
+        body();
       });
-    for (auto& t : threads) t.join();
-  }
+  for (auto& t : threads) t.join();
+}
+
+template <class K, class... A>
+void launch(int grid, int nt, size_t smem_bytes, K kernel, A... args) {
+  for (int b = 0; b < grid; ++b) run_blocks(b, b + 1, nt, smem_bytes, [&] { kernel(args...); });
 }
 
 }  // namespace emu
+
+// every block of the grid runs concurrently, or the launch is refused
+template <class... A>
+cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(A...), int grid, int nt, void** args,
+                                        size_t smem_bytes, cudaStream_t) {
+  if (grid > EMU_SM_COUNT || smem_bytes > (size_t)EMU_MAX_SMEM) return cudaErrorCooperativeLaunchTooLarge;
+  auto call = [&]<size_t... I>(std::index_sequence<I...>) {
+    kernel(*static_cast<std::remove_reference_t<A>*>(args[I])...);
+  };
+  emu::run_blocks(0, grid, nt, smem_bytes, [&] { call(std::index_sequence_for<A...>{}); });
+  return cudaSuccess;
+}
 
 inline void __syncthreads() { emu::cur->bar->arrive_and_wait(); }
 
@@ -94,4 +160,44 @@ template <class V> V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   std::memcpy(&r, &b->xch[t ^ lane_mask], 4);
   b->wbar[w]->arrive_and_wait();
   return r;
+}
+
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 for the warp, in the
+// PTX ISA's fragment layout (groupID = lane / 4, q = lane % 4): A (16x16)
+// a[0] row g, k 2q..2q+1; a[1] row g+8; a[2] row g, k 2q+8..; a[3] row g+8,
+// k 2q+8..; B (16x8) b[0] k 2q..2q+1, column g; b[1] k 2q+8..; D (16x8) d[0..1]
+// row g, columns 2q..2q+1, d[2..3] row g+8. The lower half of a word holds the
+// element of the lower index. Every lane of the warp must call it.
+inline float emu_bf16_half(uint32_t word, int hi) {
+  const uint32_t u = (hi ? word >> 16 : word & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline void mma_bf16_m16n8k16_standin(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  emu::Block* blk = emu::cur;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
+  uint32_t* mine = &blk->mma[(size_t)t * 6];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  blk->wbar[w]->arrive_and_wait();
+  auto A = [&](int r, int k) {
+    const int l = (r % 8) * 4 + (k % 8) / 2, reg = (r >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0);
+    return emu_bf16_half(blk->mma[(size_t)(base + l) * 6 + reg], k % 2);
+  };
+  auto B = [&](int k, int c) {
+    const int l = c * 4 + (k % 8) / 2, reg = 4 + (k >= 8 ? 1 : 0);
+    return emu_bf16_half(blk->mma[(size_t)(base + l) * 6 + reg], k % 2);
+  };
+  const int g = lane / 4, q = lane % 4;
+  float out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + (e >> 1) * 8, c = 2 * q + (e & 1);
+    float s = d[e];
+    for (int k = 0; k < 16; ++k) s = std::fma(A(r, k), B(k, c), s);
+    out[e] = s;
+  }
+  blk->wbar[w]->arrive_and_wait();
+  for (int e = 0; e < 4; ++e) d[e] = out[e];
 }

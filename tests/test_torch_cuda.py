@@ -148,11 +148,13 @@ SCAN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('reverse', [False, True])
-@pytest.mark.parametrize('T,B,N', [(7, 5, 40), (12, 9, 520), (16, 64, 512)])
+@pytest.mark.parametrize('T,B,N', [(7, 5, 40), (12, 9, 520), (16, 64, 512),
+                                   (16, 256, 1024), (9, 1, 512)])
 def test_lstm_scan_fwd_kernel(dev, dtype, reverse, T, B, N):
-    """K4 against its plain version: ragged batch tiles, widths that
-    leave threads to split the reduction (N=40), that fill one column
-    tile (N=512) and that need a second one (N=520).
+    """K4 against its plain version: a width padded along the reduction
+    (N=40), slices that do not divide the width (N=520), the flagship's
+    width, the widest layer at the training batch (N=1024, B=256) and a
+    single row.
     float32 differs in summation order and in expf/tanhf against
     PyTorch's; bfloat16 by an ulp of a gate carried along the sweep."""
     zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N)
@@ -168,7 +170,8 @@ def test_lstm_scan_fwd_kernel(dev, dtype, reverse, T, B, N):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('reverse', [False, True])
-@pytest.mark.parametrize('T,B,N', [(7, 5, 40), (16, 64, 512)])
+@pytest.mark.parametrize('T,B,N', [(7, 5, 40), (16, 64, 512),
+                                   (16, 256, 1024), (9, 1, 512)])
 def test_lstm_scan_bwd_kernel(dev, dtype, reverse, T, B, N):
     """K5 against its plain version on the states the plain K4 saved."""
     zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N, seed=1)
@@ -191,6 +194,39 @@ def test_lstm_scan_bwd_kernel(dev, dtype, reverse, T, B, N):
         scale = max(1.0, w.float().abs().max().item())
         torch.testing.assert_close(g.float() / scale, w.float() / scale,
                                    **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_lstm_scan_kernels_repeat_their_bits(dev, dtype):
+    """Two launches of K4, and of K5, give the same bits: every sum runs
+    in a fixed order, the blocks only exchange finished values."""
+    T, B, N = 16, 256, 512
+    zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N, seed=4)
+    first = lsk.lstm_scan_fwd(zx, R, h0, c0)
+    second = lsk.lstm_scan_fwd(zx, R, h0, c0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    hs, cs = first[:2]
+    g = torch.full_like(hs, 0.01)
+    args = (g, g[0], g[0], zx, R, _shift(hs, h0, False),
+            _shift(cs, c0, False), cs)
+    for a, b in zip(lsk.lstm_scan_bwd(*args), lsk.lstm_scan_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+def test_lstm_scan_grid_that_cannot_be_co_resident_raises(dev):
+    """A grid of more blocks than the card holds at once: the cooperative
+    launch is refused and the wrapper raises, rather than hanging on a
+    barrier that some blocks never reach."""
+    T, B, N = 3, 1024, 1024
+    zx, R, h0, c0 = _scan_inputs(dev, torch.bfloat16, T, B, N)
+    # 64 groups of 16 rows x 128 slices of 8 units
+    with pytest.raises(RuntimeError):
+        lsk._scan_fwd(zx, R, h0, c0, False, rows_per_group=16,
+                      units_per_slice=8)
+    plan = lsk.scan_plan('fwd', torch.bfloat16, B, N)
+    assert plan['groups'] * plan['slices'] <= \
+        torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 @pytest.mark.parametrize('reverse', [False, True])

@@ -40,8 +40,10 @@ from torch_port_fixtures import single_threaded_cpu  # noqa: F401
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'cuda_emulation')
-# source -> kernels launched (each declares its dynamic shared memory once)
-SOURCES = {'lstm_scan.cu': 2, 'teacher_scan.cu': 2, 'decode_step.cu': 1}
+# source -> (<<<...>>> launches, kernels declaring dynamic shared memory);
+# lstm_scan.cu launches its two kernels through cudaLaunchCooperativeKernel
+SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (2, 2),
+           'decode_step.cu': (1, 1)}
 CODE = {torch.float32: 0, torch.bfloat16: 1}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DTYPES = pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -68,7 +70,7 @@ def lib(tmp_path_factory):
                 tmp).returncode != 0:
         pytest.skip('needs a g++ with C++20 <barrier>')
     rewritten = []
-    for name, n_kernels in SOURCES.items():
+    for name, counts in SOURCES.items():
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             src = f.read()
         src, n_launch = re.subn(
@@ -76,8 +78,7 @@ def lib(tmp_path_factory):
             r'emu::launch(\2, \3, \4, \1, ', src)
         src, n_smem = re.subn(r'extern __shared__ float4 smem4\[\];',
                               'float4* smem4 = emu::smem();', src)
-        assert (n_launch, n_smem) == (n_kernels, n_kernels), \
-            (name, n_launch, n_smem)
+        assert (n_launch, n_smem) == counts, (name, n_launch, n_smem)
         path = tmp / name.replace('.cu', '.cpp')
         path.write_text(src)
         rewritten.append(str(path))
@@ -113,21 +114,42 @@ def _assert_close(got, want, tol, names, relative=False):
         assert float((g - w).abs().max()) / scale <= tol, name
 
 
+def _plan(lib, kind, dtype, B, N, br, us):
+    out = (ctypes.c_int * len(lsk._PLAN_KEYS))()
+    assert lib.lstm_scan_plan(kind, CODE[dtype], B, N, br, us, out) == 0
+    return dict(zip(lsk._PLAN_KEYS, out))
+
+
+# (T, B, N, rows per group, units per slice; 0: the launcher's plan) on an
+# emulated card of 6 SMs: one block; two row groups with a ragged second
+# and three unit slices with a ragged third, N = 40 padded to 48 along the
+# reduction; N = 520, whose 5 slices of 128 units end in one of 8 and
+# whose weights do not stay resident (staged per chunk)
+SCAN_SHAPES = [(3, 5, 16, 0, 0), (4, 21, 40, 16, 16), (2, 3, 520, 0, 0)]
+
+
 @DTYPES
 @pytest.mark.parametrize('reverse', [False, True])
-def test_emulated_lstm_scan(lib, dtype, reverse):
-    """K4 and K5 (T=3, a ragged second block of rows)."""
-    T, B, N = 3, 5, 16
+@pytest.mark.parametrize('T,B,N,br,us', SCAN_SHAPES)
+def test_emulated_lstm_scan(lib, dtype, reverse, T, B, N, br, us):
+    """K4 and K5: blocks of one cooperative grid meeting at their row
+    group's counter once a step."""
     rng = np.random.default_rng(1)
     zx, R = _mk(rng, (T, B, 4 * N), 1.0, dtype), \
         _mk(rng, (N, 4 * N), N ** -0.5, dtype)
     h0, c0 = _mk(rng, (B, N), .2, dtype), _mk(rng, (B, N), .2, dtype)
     want = lsk.lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
     got = [torch.full_like(w, float('nan')) for w in want]
+    bar = lsk._group_counters(B, 'cpu')
     err = lib.lstm_scan_fwd_launch(CODE[dtype], *_ptrs([zx, R, h0, c0] + got),
-                                   T, B, N, int(reverse), None)
+                                   bar.data_ptr(), T, B, N, int(reverse), br,
+                                   us, None)
     assert err == 0
     _assert_close(got, want, TOL[dtype], ('hs', 'cs', 'hT', 'cT'))
+    plan = _plan(lib, 0, dtype, B, N, br, us)
+    # every block of a group arrived after each step but the last
+    groups = -(-B // plan['rows_per_group'])
+    assert bar.tolist()[:groups] == [(T - 1) * plan['slices']] * groups
     hs, cs = want[:2]
     if reverse:
         hprev, cprev = torch.cat([hs[1:], h0[None]]), \
@@ -139,12 +161,45 @@ def test_emulated_lstm_scan(lib, dtype, reverse):
     want = lsk.lstm_scan_bwd_reference(*cots, zx, R, hprev, cprev, cs,
                                        reverse)
     got = [torch.full_like(w, float('nan')) for w in want]
-    ins = cots + [zx, R, R.t().contiguous(), hprev, cprev, cs]
-    err = lib.lstm_scan_bwd_launch(CODE[dtype], *_ptrs(ins + got), T, B, N,
-                                   int(reverse), None)
+    ins = cots + [zx, R, hprev, cprev, cs]
+    bar.zero_()
+    err = lib.lstm_scan_bwd_launch(CODE[dtype], *_ptrs(ins + got),
+                                   bar.data_ptr(), T, B, N, int(reverse), br,
+                                   us, None)
     assert err == 0
     _assert_close(got, want, TOL[dtype], ('dzx', 'dh0', 'dc0'),
                   relative=True)
+
+
+@DTYPES
+def test_emulated_lstm_scan_plans(lib, dtype):
+    """What the launcher picks on 6 SMs, and what it refuses."""
+    # R's gate columns resident (K5: and its rows), every SM a block
+    assert _plan(lib, 0, dtype, 21, 40, 16, 16) == dict(
+        _plan(lib, 0, dtype, 21, 40, 16, 16), groups=2, slices=3,
+        rows_per_group=16, units_per_slice=16, resident=1, launches=1)
+    assert _plan(lib, 1, dtype, 21, 40, 16, 16)['resident'] == 3
+    # 5 slices of 128 units and one group of 16 rows hold 8,192 outputs,
+    # the most a block's product holds, so 40 rows take three launches
+    p = _plan(lib, 0, dtype, 40, 520, 0, 0)
+    assert (p['groups'], p['slices'], p['rows_per_group'],
+            p['units_per_slice'], p['resident'], p['launches']) \
+        == (1, 5, 16, 128, 0, 3)
+    # more blocks (3 groups x 3 slices) than SMs: the launch is refused,
+    # nothing runs
+    T, B, N = 2, 40, 24
+    zeros = [torch.zeros(s, dtype=dtype) for s in
+             ((T, B, 4 * N), (N, 4 * N), (B, N), (B, N), (T, B, N),
+              (T, B, N), (B, N), (B, N))]
+    bar = lsk._group_counters(B, 'cpu')
+    err = lib.lstm_scan_fwd_launch(CODE[dtype], *_ptrs(zeros), bar.data_ptr(),
+                                   T, B, N, 0, 16, 8, None)
+    assert err == 720     # cudaErrorCooperativeLaunchTooLarge
+    assert float(zeros[4].abs().sum()) == 0.0
+    # imposed sizes that no product holds, or that break the tiles
+    out = (ctypes.c_int * len(lsk._PLAN_KEYS))()
+    assert lib.lstm_scan_plan(0, CODE[dtype], 40, 16, 12, 8, out) != 0
+    assert lib.lstm_scan_plan(0, CODE[dtype], 512, 512, 512, 128, out) != 0
 
 
 def _teacher_inputs(dtype, B, Td, T, W, A, with_masks, seed):
