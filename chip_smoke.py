@@ -98,15 +98,19 @@ def _dtype_name(dt):
 
 
 def phase_k2(torch, dev):
-    """K2 against its plain version at the decoder's shapes."""
+    """K2 against its plain version at the decoder's shapes: greedy
+    serving's batches (1, 16), the B=256 batch and a ragged row tile
+    (257), the lower layers' D = W and the top cell's D = W + A, with the
+    tile the launcher picks for each."""
     from cor_asv_ann_tpu_torch.ops.lstm import lstm_step
-    from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import lstm_step_fused
+    from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import (lstm_step_fused,
+                                                            step_plan)
     gen = torch.Generator().manual_seed(0)
     W = 512
     errs = {}
     for dt, tol in ((torch.float32, dict(atol=1e-5, rtol=0.0)),
                     (torch.bfloat16, dict(atol=1e-2, rtol=1e-2))):
-        for B in (16, 256):
+        for B in (1, 16, 256, 257):
             for D in (512, 1024):
                 def mk(*shape, scale=None):
                     v = (torch.rand(*shape, generator=gen) * 2 - 1
@@ -127,8 +131,12 @@ def phase_k2(torch, dev):
                 err = max((hk.float() - hp.float()).abs().max().item(),
                           (ck.float() - cp.float()).abs().max().item())
                 errs[(_dtype_name(dt), B, D)] = err
-                print('K2 %-8s B=%-3d D=%-4d max|kernel-plain| = %.3g'
-                      % (_dtype_name(dt), B, D, err))
+                plan = step_plan(dt, B, D, W)
+                print('K2 %-8s B=%-3d D=%-4d tile %d rows x %d units (%d x %d '
+                      'blocks): max|kernel-plain| = %.3g'
+                      % (_dtype_name(dt), B, D, plan['rows_per_tile'],
+                         plan['units_per_slice'], plan['row_tiles'],
+                         plan['unit_slices'], err))
     return errs
 
 
@@ -872,8 +880,12 @@ STEP_SHAPE = dict(V=45, W=512, A=512, WIN=12)   # the flagship's beam step
 
 def _step_inputs(torch, dev, dt, N, seed, V, W, A, WIN):
     """K3's activations and packed weights at the scale a model's have;
-    rows 3 and N-1 have no visible position."""
-    from cor_asv_ann_tpu_torch.ops.decode_step_kernel import _BIASES
+    rows 3 and N-1 have no visible position. Besides, the encoder rows of
+    the indexed form: N / rows_per_line lines of T = 64 (the golden
+    corpus's bucket), window starts over the whole line, so windows run
+    off its end and clamp at T - 1, and the gathered windows are those
+    rows."""
+    from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
     gen = torch.Generator().manual_seed(seed)
 
     def mk(shape, scale, dtype=torch.float32):
@@ -881,16 +893,24 @@ def _step_inputs(torch, dev, dt, N, seed, V, W, A, WIN):
 
     fb = torch.softmax(mk((N, V), 3.0), dim=-1)
     states = [mk((N, W), 0.5) for _ in range(4)]
-    u_w, att_w = mk((N, WIN, W), 0.5, dt), mk((N, WIN, A), 0.5, dt)
+    per_line = STEP_LINE_ROWS.get(N, 5)
+    u, att = mk((-(-N // per_line), STEP_T, W), 0.5, dt), \
+        mk((-(-N // per_line), STEP_T, A), 0.5, dt)
+    start = torch.randint(0, STEP_T - WIN // 2, (N,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    start[0] = 0
     visible = (torch.rand(N, WIN, generator=gen) < 0.8).to(dev)
     visible[3] = visible[N - 1] = False
     shapes = dict(E=(V, W), k1=(W, 4 * W), r1=(W, 4 * W), b1=(4 * W,),
                   k2=(W + A, 4 * W), r2=(W, 4 * W), b2=(4 * W,),
                   W_a=(W, W), v_a=(W, 1), b_UW=(W,), b_v=(1,))
     weights = {k: mk(shape, shape[0] ** -0.5 if len(shape) > 1 else 0.1,
-                     torch.float32 if k in _BIASES else dt)
+                     torch.float32 if k in dsk._BIASES else dt)
                for k, shape in shapes.items()}
-    return [fb, *states, u_w, att_w, visible], weights
+    weights.update(dsk.kernel_layouts(weights))
+    u_w, att_w = dsk.gather_windows(u, att, per_line, start, WIN)
+    indexed = [fb, *states, u, att, per_line, start, visible]
+    return [fb, *states, u_w, att_w, visible], indexed, weights
 
 
 def step_tolerance(torch, dt):
@@ -907,59 +927,91 @@ def step_tolerance(torch, dt):
 # default, 0.5), at batch sizes 256 and 16 and in the 128-line bucket
 STEP_ROWS = {'B256_r03': 8192, 'B128_r03': 4096, 'B16_r03': 512,
              'B256_r05': 12288, 'B16_r05': 768}
+# rows of a line at those steps (K), and the encoder rows of a line
+STEP_LINE_ROWS = {8192: 32, 4096: 32, 512: 32, 12288: 48, 768: 48}
+STEP_T = 64
 
 
 def phase_k3(torch, dev):
     """K3 against its plain version at the flagship's widths: the rows of
-    a beam step (`STEP_ROWS`) and a count that is no multiple of the row
-    tile, float32 and bfloat16, all-masked rows included."""
+    a beam step (`STEP_ROWS`, row tiles of 16, 32 and 64) and a count that
+    is no multiple of the row tile, float32 and bfloat16, all-masked rows
+    included, in both forms: gathered windows and the window rows read by
+    index, which must give the same bits."""
     from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         tol = step_tolerance(torch, dt)
         for N in (*sorted(STEP_ROWS.values()), 770):
-            acts, weights = _step_inputs(torch, dev, dt, N, N, **STEP_SHAPE)
+            acts, indexed, weights = _step_inputs(torch, dev, dt, N, N,
+                                                  **STEP_SHAPE)
             got = dsk.fused_decode_step(*acts, weights)
+            got_i = dsk.fused_decode_step_indexed(*indexed, weights)
             torch.cuda.synchronize()
             want = dsk.fused_decode_step_reference(*acts, weights)
-            for g, w in zip(got, want):
+            for g, gi, w in zip(got, got_i, want):
                 torch.testing.assert_close(g, w, atol=tol, rtol=0)
+                check(torch.equal(g, gi), 'K3 N=%d: the indexed form differs '
+                      'from the gathered form' % N)
             check(float(got[5][3].abs().max()) == 0.0
                   and float(got[5][N - 1].abs().max()) == 0.0,
                   'K3: an all-masked row has a non-zero alignment')
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             errs[(_dtype_name(dt), N)] = err
-            print('K3 %-8s N=%-5d V=%d W=%d A=%d WIN=%d max|kernel-plain| = '
-                  '%.3g (atol %g)' % (_dtype_name(dt), N, *STEP_SHAPE.values(),
-                                      err, tol))
+            print('K3 %-8s N=%-5d (%d-row product tiles) V=%d W=%d A=%d WIN=%d '
+                  'max|kernel-plain| = %.3g (atol %g), indexed form equal'
+                  % (_dtype_name(dt), N,
+                     dsk.step_rows_per_tile(dt, N, STEP_SHAPE['W']),
+                     *STEP_SHAPE.values(), err, tol))
     return errs
 
 
 def step_times(torch, dev, dt, N):
-    """K3 at the flagship's widths: kernel (through its wrapper), plain
-    version and bound. No single PyTorch call computes this function, so
-    there is no library yardstick."""
+    """K3 at the flagship's widths, both forms: kernel (through its
+    wrapper), plain version and bound. No single PyTorch call computes
+    this function, so there is no library yardstick. The gathered form's
+    bound reads the gathered windows; the indexed form's reads each
+    line's encoder rows that its windows touch, once."""
     from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
-    acts, weights = _step_inputs(torch, dev, dt, N, 12, **STEP_SHAPE)
+    acts, indexed, weights = _step_inputs(torch, dev, dt, N, 12,
+                                          **STEP_SHAPE)
     V, W, A, WIN = STEP_SHAPE.values()
-    reps = 5 if N > 4096 else 20
+    reps = 10 if N > 4096 else 40
     out = {'ms': cuda_time_ms(
         lambda: dsk.fused_decode_step(*acts, weights), reps)}
     out['plain_ms'] = cuda_time_ms(
         lambda: dsk.fused_decode_step_reference(*acts, weights), reps)
+    out['indexed_ms'] = cuda_time_ms(
+        lambda: dsk.fused_decode_step_indexed(*indexed, weights), reps)
+    out['indexed_plain_ms'] = cuda_time_ms(
+        lambda: dsk.fused_decode_step_indexed_reference(*indexed, weights),
+        reps)
     size = weights['E'].element_size()
     matrices = V * W + 4 * W * 4 * W + A * 4 * W + W * W + W
-    # reads fb, four states, the two window stacks, visible, the weights
-    # and biases; writes probs, four states and the alignment
-    nbytes = (4 * N * (V + 4 * W) + size * N * WIN * (W + A) + N * WIN
-              + size * matrices + 4 * (9 * W + 1)
-              + 4 * N * (V + 4 * W + WIN))
+    # reads fb, four states, the window rows, visible, the weights and
+    # biases; writes probs, four states and the alignment
+    rest = (4 * N * (V + 4 * W) + N * WIN + size * matrices
+            + 4 * (9 * W + 1) + 4 * N * (V + 4 * W + WIN))
+    per_line, start = indexed[7], indexed[8]
+    T = indexed[5].shape[1]
+    line = torch.div(torch.arange(N, device=dev), per_line,
+                     rounding_mode='floor')
+    touched = torch.zeros(indexed[5].shape[0], T, dtype=torch.bool,
+                          device=dev)
+    for j in range(WIN):
+        touched[line, torch.clamp(start.long() + j, max=T - 1)] = True
+    rows = int(touched.sum())
     flops = 2 * N * (2 * V * W + 4 * W * 4 * W + A * 4 * W + W * W
                      + WIN * (W + A))
-    out['bound_ms'], out['bound_by'] = bound(nbytes, flops, _dtype_name(dt))
-    print('K3 %s N=%d: kernel %.3f ms, plain %.3f ms, bound %.4f ms (%s)'
-          % (_dtype_name(dt), N, out['ms'], out['plain_ms'],
-             out['bound_ms'], out['bound_by']))
+    out['bound_ms'], out['bound_by'] = bound(
+        rest + size * N * WIN * (W + A), flops, _dtype_name(dt))
+    out['indexed_bound_ms'], out['indexed_bound_by'] = bound(
+        rest + size * rows * (W + A) + 4 * N, flops, _dtype_name(dt))
+    print('K3 %s N=%d: gathered %.3f ms (plain %.3f, bound %.4f %s), '
+          'indexed %.3f ms (plain %.3f, bound %.4f %s; %d encoder rows)'
+          % (_dtype_name(dt), N, out['ms'], out['plain_ms'], out['bound_ms'],
+             out['bound_by'], out['indexed_ms'], out['indexed_plain_ms'],
+             out['indexed_bound_ms'], out['indexed_bound_by'], rows))
     return out
 
 
@@ -1120,6 +1172,9 @@ def beam_path(torch, dev, goldens, golden_corpus, tmp, launches_of):
             beam._BEAM_STEP_KERNEL = 'auto'
         check(launches_of()['decode_step'] - before == launched,
               'the per-op bf16 beam launched K3')
+        check(launches_of()['decode_step_gathered'] == 0,
+              'the bf16 beam launched K3 on gathered windows: it reads them '
+              'by index')
         # agreement with the float32 golden, counted over the distinct
         # lines of the batch (the B=256 batch repeats the 120 lines)
         want = golden_corpus['modes']['beam_r03_plain']['output']
@@ -1247,7 +1302,8 @@ def main():
                 'lstm_scan_bwd': lsk.lstm_scan_bwd,
                 'teacher_fwd': tk.teacher_fwd,
                 'teacher_bwd': tk.teacher_bwd,
-                'decode_step': dsk.fused_decode_step}
+                'decode_step': dsk.fused_decode_step,
+                'decode_step_indexed': dsk.fused_decode_step_indexed}
     train_kernels = ('lstm_scan_fwd', 'lstm_scan_bwd', 'teacher_fwd',
                      'teacher_bwd')
 
@@ -1269,8 +1325,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         beam_report = beam_path(
             torch, dev, goldens, golden_corpus, tmp,
-            lambda: {'decode_step': dsk.fused_decode_step.launches})
-    launches['decode_step'] = dsk.fused_decode_step.launches
+            lambda: {'decode_step': dsk.fused_decode_step.launches
+                     + dsk.fused_decode_step_indexed.launches,
+                     'decode_step_gathered': dsk.fused_decode_step.launches})
+    # K3 in either form: the beam takes the indexed one
+    launches['decode_step'] = dsk.fused_decode_step.launches \
+        + dsk.fused_decode_step_indexed.launches
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
           'a kernel of the main paths was not launched: %s' % launches)
@@ -1303,43 +1363,52 @@ def main():
           '(%s; %d line-steps)' % (B, T, k1_ms, k1_plain_ms, k1_bound,
                                    k1_by, steps))
 
-    # K2 at B=256, D=1024 in float32 (the dtype the f32 serving path
-    # launches it with)
-    gen = torch.Generator().manual_seed(1)
-    B2, D2, W2 = 256, 1024, 512
-    x = (torch.rand(B2, D2, generator=gen) * 2 - 1).to(dev)
-    h = (torch.rand(B2, W2, generator=gen) * 2 - 1).to(dev)
-    c = (torch.rand(B2, W2, generator=gen) * 2 - 1).to(dev)
-    K = (torch.randn(D2, 4 * W2, generator=gen) * 0.05).to(dev)
-    R = (torch.randn(W2, 4 * W2, generator=gen) * 0.05).to(dev)
-    bias = (torch.randn(4 * W2, generator=gen) * 0.5).to(dev)
-    w = {'kernel': K, 'recurrent_kernel': R, 'bias': bias}
-    k2_ms = cuda_time_ms(lambda: k2.lstm_step_fused(x, h, c, K, R, bias),
-                         50)
-    k2_plain_ms = cuda_time_ms(lambda: lstm_step(x, h, c, w), 50)
+    # K2 at D=1024, W=512 (the top cell's input): B=256 in float32 (the
+    # dtype the f32 serving path launches it with) goes into the kernels
+    # line; bfloat16, and B=16 (greedy serving's small batches) beside it.
     # torch.lstm_cell computes the same function (gate order i, f, g, o)
-    # with the kernels transposed; timed as the library yardstick only
-    Kt, Rt, zero = K.t().contiguous(), R.t().contiguous(), \
-        torch.zeros_like(bias)
-    k2_lib_ms = cuda_time_ms(
-        lambda: torch.lstm_cell(x, (h, c), Kt, Rt, bias, zero), 50)
-    k2_bytes = 4 * (B2 * D2 + 2 * B2 * W2 + D2 * 4 * W2 + W2 * 4 * W2
-                    + 4 * W2 + 2 * B2 * W2)
-    k2_flops = 2 * B2 * (D2 + W2) * 4 * W2
-    k2_bound, k2_by = bound(k2_bytes, k2_flops, 'float32')
-    print('K2 f32 B=%d D=%d: kernel %.4f ms, plain %.4f ms, torch.lstm_cell '
-          '%.4f ms, bound %.4f ms (%s)' % (B2, D2, k2_ms, k2_plain_ms,
-                                          k2_lib_ms, k2_bound, k2_by))
-    xb, hb, cb, Kb, Rb, bb = (t.to(torch.bfloat16)
-                              for t in (x, h, c, K, R, bias))
-    k2b_ms = cuda_time_ms(lambda: k2.lstm_step_fused(xb, hb, cb, Kb, Rb, bb),
-                          50)
-    k2b_plain_ms = cuda_time_ms(
-        lambda: lstm_step(xb, hb, cb, {'kernel': Kb, 'recurrent_kernel': Rb,
-                                       'bias': bb}), 50)
-    k2b_bound, k2b_by = bound(k2_bytes // 2, k2_flops, 'bfloat16')
-    print('K2 bf16 B=%d D=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms '
-          '(%s)' % (B2, D2, k2b_ms, k2b_plain_ms, k2b_bound, k2b_by))
+    # with the kernels transposed; timed in turns with the kernel as the
+    # library yardstick only
+    k2_t = {}
+    for B2 in (256, 16):
+        gen = torch.Generator().manual_seed(1)
+        D2, W2 = 1024, 512
+        base = [(torch.rand(B2, D2, generator=gen) * 2 - 1),
+                (torch.rand(B2, W2, generator=gen) * 2 - 1),
+                (torch.rand(B2, W2, generator=gen) * 2 - 1),
+                (torch.randn(D2, 4 * W2, generator=gen) * 0.05),
+                (torch.randn(W2, 4 * W2, generator=gen) * 0.05),
+                (torch.randn(4 * W2, generator=gen) * 0.5)]
+        k2_bytes = 4 * (B2 * D2 + 2 * B2 * W2 + D2 * 4 * W2 + W2 * 4 * W2
+                        + 4 * W2 + 2 * B2 * W2)
+        k2_flops = 2 * B2 * (D2 + W2) * 4 * W2
+        for dt in (torch.float32, torch.bfloat16):
+            x, h, c, K, R, bias = (t.to(dt).to(dev) for t in base)
+            w = {'kernel': K, 'recurrent_kernel': R, 'bias': bias}
+            Kt, Rt = K.t().contiguous(), R.t().contiguous()
+            zero = torch.zeros_like(bias)
+            name = _dtype_name(dt)
+            t = {}
+            for key, fn in (('ms', lambda: k2.lstm_step_fused(x, h, c, K, R,
+                                                              bias)),
+                            ('library_ms', lambda: torch.lstm_cell(
+                                x, (h, c), Kt, Rt, bias, zero)),
+                            ('ms2', lambda: k2.lstm_step_fused(x, h, c, K, R,
+                                                               bias)),
+                            ('library_ms2', lambda: torch.lstm_cell(
+                                x, (h, c), Kt, Rt, bias, zero))):
+                t[key] = cuda_time_ms(fn, 200)
+            t['plain_ms'] = cuda_time_ms(lambda: lstm_step(x, h, c, w), 100)
+            t['bound_ms'], t['bound_by'] = bound(
+                k2_bytes * dt.itemsize // 4, k2_flops, name)
+            # the kernel and the library call, each the mean of its two turns
+            t['ms'] = (t['ms'] + t.pop('ms2')) / 2
+            t['library_ms'] = (t['library_ms'] + t.pop('library_ms2')) / 2
+            k2_t[(name, B2)] = t
+            print('K2 %-8s B=%-3d D=%d: kernel %.4f ms, plain %.4f ms, '
+                  'torch.lstm_cell %.4f ms, bound %.4f ms (%s)'
+                  % (name, B2, D2, t['ms'], t['plain_ms'], t['library_ms'],
+                     t['bound_ms'], t['bound_by']))
 
     # K4 and K5 at T=128, B=256, N=512, the shape the flagship's training
     # batch gives them; bfloat16 goes into the kernels line
@@ -1406,8 +1475,7 @@ def main():
              launches=launches['lstm_step'],
              max_abs_err=max(v for k, v in k2_errs.items()
                              if k[0] == 'float32'),
-             ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
-             bound_by=k2_by, library_ms=k2_lib_ms),
+             **k2_t[('float32', 256)]),
         dict(name='lstm_scan_fwd', route='cuda',
              source='cor_asv_ann_tpu_torch/csrc/lstm_scan.cu',
              replaces='cor_asv_ann_tpu/ops/pallas_lstm_train.py:55',
@@ -1455,10 +1523,13 @@ def main():
              max_abs_err=max(v for k, v in k3_errs.items()
                              if k[0] == 'bfloat16'),
              library_ms=None,
-             **step_t[('bfloat16', STEP_ROWS['B256_r03'])]),
+             **{k: step_t[('bfloat16', STEP_ROWS['B256_r03'])][k]
+                for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')}),
     ]
     print('scan kernels float32: %s' % json.dumps(scan_f32))
     print('teacher kernels float32: %s' % json.dumps(teacher_f32))
+    print('LSTM step kernel: %s' % json.dumps(
+        {'%s_B%d' % k: v for k, v in k2_t.items()}))
     print('decode step kernel: %s' % json.dumps(
         {'%s_N%d' % k: v for k, v in step_t.items()}))
     print(json.dumps({'kernels': kernels}))

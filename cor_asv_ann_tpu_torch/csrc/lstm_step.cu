@@ -11,140 +11,259 @@
 // is what PyTorch's (and XLA's) per-op bf16 arithmetic does in the plain twin
 // ops/lstm.py:lstm_step; in float32 the rounding is the identity.
 //
-// What bounds it on an H100: bytes. At the decoder's shapes (B <= 256,
-// D <= 1024, W = 512) the weights (6 MB in bf16) dominate the traffic and
-// the 2*B*(D+W)*4W operations are below the card's ridge point.
-// What the design does about it: each block owns BU = 32 hidden units, i.e.
-// the 4*32 gate columns that unit's gate math needs, for a tile of rows, so
-// the preactivations never leave registers and the epilogue needs no
-// exchange between threads; the weight tile is staged once in shared memory
-// and reused by every row of the block. Plain FMA in float32 (mma.sync,
-// wgmma and TMA are later work).
+// What bounds it on an H100: operations in float32 (2*B*(D+W)*4W on FMA, no
+// TF32: 0.024 ms at B=256, D=1024, W=512), bytes in bfloat16 (the weights,
+// 6 MB there). What the design does about it: a block owns a tile of BR rows
+// and a slice of US units, i.e. the 4*US gate columns of K and R that the
+// gate math of its units needs, so the Keras gates run in the epilogue of the
+// block's own products and only h' and c' leave it. The rows of x and h and
+// the chunks of the gate columns come in by cp.async, NS - 1 chunks in flight
+// under the product of one (step_tile.cuh); the weights stay row-major, as
+// the caller passes them every step, and are read so: bf16 on tensor cores
+// (mma.sync m16n8k16, fragments by ldmatrix.x4, B's .trans, float32
+// accumulators), float32 on exact FMA in register tiles. x.K and h.R are two
+// accumulations, each rounded on its own, as the plain version rounds them.
+// The launcher picks BR and US from B, D, W and the SM count: the tile that
+// covers the card in the fewest waves for the least time a wave, by a model
+// of operations and bytes a block, among the tiles whose chunk buffers fit
+// a block's shared memory. Tiles of 32 or 64 rows x 16 or 32 units (B=256:
+// 64 x 16) run on products of a compile-time shape; greedy serving's
+// B <= 16 takes 16 rows and narrow slices, whose product splits the
+// reduction among the warps (TileKN).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "step_tile.cuh"
 
 namespace {
 
-constexpr int BU = 32;  // hidden units per block (one per lane)
-constexpr int TY = 8;   // thread rows per block
-constexpr int KC = 32;  // reduction chunk staged in shared memory
+using scan::from_f;
+using scan::rnd;
+using scan::to_f;
+using namespace scan::grid;
+using namespace scan::tile;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int NS = 3;  // chunk buffers
+// reduction chunk: 512 bytes of a row (fewer barriers than step_tile's 128;
+// tools/step_ablation.py times 128, 256 and 512)
+template <typename T> __host__ __device__ constexpr int kc2() { return 512 / (int)sizeof(T); }
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+struct Plan {
+  int BR, US, tiles, slices;
+};
 
-// round to the storage type and back
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
+struct Args {
+  const void *x, *h, *c, *K, *R, *b;
+  void *h_out, *c_out;
+  int B, D, W;
+  bool vec_x, vec_h, vec_w;  // 16-byte copies of x's rows, h's rows, the gate columns
+  Plan p;
+};
+
+// whether a tile runs on the compile-time products (fixed_tile) or TileKN
+bool fixed_tile(int BR, int US) { return (BR == 64 || BR == 32) && (US == 32 || US == 16); }
+
+// dynamic shared memory of a block, in bytes: the chunk buffers, and the two
+// float32 products beside them (TileKN) or in them (fixed tiles)
+template <typename T> size_t step_smem(const Plan& p) {
+  const int P = pad<T>(), nc = 4 * p.US;
+  const size_t stages =
+      (size_t)NS * ((size_t)p.BR * (kc2<T>() + P) + (size_t)kc2<T>() * (nc + P)) * sizeof(T);
+  const size_t z = (size_t)2 * p.BR * nc * sizeof(float);
+  if (fixed_tile(p.BR, p.US)) return stages > z ? stages : z;
+  return stages + z + (size_t)part_floats<T>() * sizeof(float);
 }
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// acc[r][g] += sum_k A[row_r, k] * M[k, g*W + unit] over k < Kd
-template <typename T, int RPT>
-__device__ __forceinline__ void accumulate(const T* __restrict__ A, const T* __restrict__ M,
-                                           int B, int Kd, int W, int row0,
-                                           float (*a_s)[KC + 1], float (*w_s)[4][BU],
-                                           float (&acc)[RPT][4]) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * BU + tx;
-  constexpr int NT = BU * TY;
-  constexpr int ROWS = TY * RPT;
-  for (int k0 = 0; k0 < Kd; k0 += KC) {
-    for (int i = tid; i < ROWS * KC; i += NT) {
-      const int r = i / KC, kk = i % KC;
-      const int row = row0 + r, k = k0 + kk;
-      a_s[r][kk] = (row < B && k < Kd) ? to_f<T>(A[(size_t)row * Kd + k]) : 0.0f;
-    }
-    for (int i = tid; i < KC * 4 * BU; i += NT) {
-      const int kk = i / (4 * BU), g = (i / BU) % 4, uu = i % BU;
-      const int k = k0 + kk, col = blockIdx.x * BU + uu;
-      w_s[kk][g][uu] = (k < Kd && col < W) ? to_f<T>(M[(size_t)k * 4 * W + g * W + col]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      const float w0 = w_s[kk][0][tx], w1 = w_s[kk][1][tx];
-      const float w2 = w_s[kk][2][tx], w3 = w_s[kk][3][tx];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float a = a_s[ty * RPT + r][kk];
-        acc[r][0] = fmaf(a, w0, acc[r][0]);
-        acc[r][1] = fmaf(a, w1, acc[r][1]);
-        acc[r][2] = fmaf(a, w2, acc[r][2]);
-        acc[r][3] = fmaf(a, w3, acc[r][3]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int RPT>
-__global__ void __launch_bounds__(BU * TY)
-lstm_step_kernel(const T* __restrict__ x, const T* __restrict__ h, const T* __restrict__ c,
-                 const T* __restrict__ K, const T* __restrict__ R, const T* __restrict__ b,
-                 T* __restrict__ h_out, T* __restrict__ c_out, int B, int D, int W) {
-  __shared__ float a_s[TY * RPT][KC + 1];
-  __shared__ float w_s[KC][4][BU];
-  const int row0 = blockIdx.y * TY * RPT;
-  float xk[RPT][4], hr[RPT][4];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int g = 0; g < 4; ++g) xk[r][g] = hr[r][g] = 0.0f;
-  accumulate<T, RPT>(x, K, B, D, W, row0, a_s, w_s, xk);
-  accumulate<T, RPT>(h, R, B, W, W, row0, a_s, w_s, hr);
-
-  const int u = blockIdx.x * BU + threadIdx.x;
-  if (u >= W) return;
-  float bias[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = to_f<T>(b[g * W + u]);
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + threadIdx.y * RPT + r;
-    if (row >= B) continue;
+// the Keras gates of the block's (row, unit) pairs from zx and zh ([BR][nc]
+// float32 in shared memory), neighbouring threads on neighbouring units
+template <typename T>
+__device__ __forceinline__ void gates(const Args& a, const float* __restrict__ zx,
+                                      const float* __restrict__ zh, int r0, int nr, int u0, int nu,
+                                      int US) {
+  const int nc = 4 * US;
+  const T* bias = static_cast<const T*>(a.b);
+  const T* c_in = static_cast<const T*>(a.c);
+  T* h_out = static_cast<T*>(a.h_out);
+  T* c_out = static_cast<T*>(a.c_out);
+  for (int i = threadIdx.x; i < nr * US; i += NT) {
+    const int r = i / US, j = i % US;
+    if (j >= nu) continue;
+    const int u = u0 + j;
     float z[4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      z[g] = rnd<T>(rnd<T>(rnd<T>(xk[r][g]) + rnd<T>(hr[r][g])) + bias[g]);
+    for (int g = 0; g < 4; ++g) {
+      const int at = r * nc + g * US + j;
+      z[g] = rnd<T>(rnd<T>(rnd<T>(zx[at]) + rnd<T>(zh[at])) + to_f<T>(bias[g * a.W + u]));
+    }
     const float ig = rnd<T>(sigmoid_f(z[0]));
     const float fg = rnd<T>(sigmoid_f(z[1]));
     const float gg = rnd<T>(tanhf(z[2]));
     const float og = rnd<T>(sigmoid_f(z[3]));
-    const size_t at = (size_t)row * W + u;
-    const float cn = rnd<T>(rnd<T>(fg * to_f<T>(c[at])) + rnd<T>(ig * gg));
+    const size_t at = (size_t)(r0 + r) * a.W + u;
+    const float cn = rnd<T>(rnd<T>(fg * to_f<T>(c_in[at])) + rnd<T>(ig * gg));
     const float hn = rnd<T>(og * rnd<T>(tanhf(cn)));
     h_out[at] = from_f<T>(hn);
     c_out[at] = from_f<T>(cn);
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* h, const void* c, const void* K, const void* R,
-            const void* b, void* h_out, void* c_out, int B, int D, int W, cudaStream_t s) {
-  const dim3 block(BU, TY);
-  // small batches: one row per thread, so more blocks share the weights
-  if (B <= 64) {
-    const dim3 grid((W + BU - 1) / BU, (B + TY - 1) / TY);
-    lstm_step_kernel<T, 1><<<grid, block, 0, s>>>(
-        (const T*)x, (const T*)h, (const T*)c, (const T*)K, (const T*)R, (const T*)b,
-        (T*)h_out, (T*)c_out, B, D, W);
+// the block's products of a compile-time tile (BR rows x US units): bf16 on
+// tensor cores, float32 on FMA, both reading the weights' chunks as [k][c]
+template <typename T, int BR, int US> struct KnTile;
+template <int BR, int US> struct KnTile<__nv_bfloat16, BR, US> {
+  using type = WarpTile<BR, 4 * US, 2, true>;
+};
+template <int BR, int US> struct KnTile<float, BR, US> {
+  using type = FmaTile<BR, 4 * US, true>;
+};
+
+// one chunk of KC on a compile-time tile; float32 with every k-step unrolled
+template <int KC, int BR, int NC>
+__device__ __forceinline__ void chunk_of(WarpTile<BR, NC, 2, true>& t, const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b) {
+  t.template chunk<KC>(a, b);
+}
+template <int KC, int BR, int NC>
+__device__ __forceinline__ void chunk_of(FmaTile<BR, NC, true>& t, const float* a, const float* b) {
+  t.template chunk<KC, KC / 4>(a, b);
+}
+
+// BR, US > 0: a compile-time tile on the fast products; 0: the tile of the
+// plan, on TileKN (any tile, the reduction split among warps where the tile
+// has fewer outputs than the block has workers)
+template <typename T, int BR_, int US_>
+__global__ void __launch_bounds__(NT) lstm_step_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  const Plan& p = a.p;
+  constexpr bool fixed = BR_ > 0;
+  const int BR = fixed ? BR_ : p.BR, US = fixed ? US_ : p.US;
+  const int tile = blockIdx.x / p.slices, s = blockIdx.x % p.slices;
+  const int r0 = tile * BR, nr = min(BR, a.B - r0), M = round_up(nr, 16);
+  const int u0 = s * US, nu = min(US, a.W - u0), nc = 4 * US;
+  constexpr int KC = kc2<T>();
+  const int lda = KC + pad<T>(), ldb = nc + pad<T>();
+  T* abuf = reinterpret_cast<T*>(smem4);          // NS x [BR][lda]: rows of x or h
+  T* bbuf = abuf + (size_t)NS * BR * lda;          // NS x [KC][ldb]: gate columns
+  const T* x = static_cast<const T*>(a.x);
+  const T* h = static_cast<const T*>(a.h);
+  const T* K = static_cast<const T*>(a.K);
+  const T* R = static_cast<const T*>(a.R);
+  const int cx = ceil_div(a.D, KC), ch = ceil_div(a.W, KC);
+
+  // chunks 0 .. cx-1 reduce x.K, chunks cx .. cx+ch-1 reduce h.R
+  auto issue = [&](int c, int buf) {
+    const bool first = c < cx;
+    const int Kd = first ? a.D : a.W, k0 = (first ? c : c - cx) * KC;
+    copy_rows<T>(abuf + (size_t)buf * BR * lda, lda, (first ? x : h) + (size_t)r0 * Kd, Kd,
+                 fixed ? BR : M, nr, k0, KC, Kd, first ? a.vec_x : a.vec_h);
+    copy_gate_cols<T>(bbuf + (size_t)buf * KC * ldb, ldb, first ? K : R, a.W, u0, US, nu, k0, KC,
+                      Kd, a.vec_w);
+  };
+  if constexpr (fixed) {
+    // the two accumulations side by side, then both products over the
+    // chunk buffers, which are free by then
+    typename KnTile<T, BR_, US_>::type ax(lda, ldb), ah(lda, ldb);
+    pipeline<NS>(cx + ch, issue, [&](int c, int buf) {
+      const T* ab = abuf + (size_t)buf * BR * lda;
+      const T* bb = bbuf + (size_t)buf * KC * ldb;
+      if (c < cx)
+        chunk_of<KC>(ax, ab, bb);
+      else
+        chunk_of<KC>(ah, ab, bb);
+    });
+    float* zx = reinterpret_cast<float*>(smem4);
+    float* zh = zx + (size_t)BR * nc;
+    ax.store(zx, nc);
+    ah.store(zh, nc);
+    __syncthreads();
+    gates<T>(a, zx, zh, r0, nr, u0, nu, US);
   } else {
-    const dim3 grid((W + BU - 1) / BU, (B + 4 * TY - 1) / (4 * TY));
-    lstm_step_kernel<T, 4><<<grid, block, 0, s>>>(
-        (const T*)x, (const T*)h, (const T*)c, (const T*)K, (const T*)R, (const T*)b,
-        (T*)h_out, (T*)c_out, B, D, W);
+    float* zx = reinterpret_cast<float*>(bbuf + (size_t)NS * KC * ldb);  // [BR][nc]
+    float* zh = zx + (size_t)BR * nc;
+    float* part = zh + (size_t)BR * nc;
+    TileKN<T> acc(M, nc);
+    pipeline<NS>(cx + ch, issue, [&](int c, int buf) {
+      acc.chunk(abuf + (size_t)buf * BR * lda, lda, bbuf + (size_t)buf * KC * ldb, ldb, KC);
+      if (c == cx - 1) {
+        acc.finish(zx, nc, part);
+        acc = TileKN<T>(M, nc);
+      }
+    });
+    acc.finish(zh, nc, part);
+    gates<T>(a, zx, zh, r0, nr, u0, nu, US);
   }
+}
+
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) return 0;
+  return v;
+}
+
+// The tile of the launch: BR rows x US units, imposed (br, us > 0) or picked.
+// A block's time is modelled as its FMAs (float32: 128 a clock; bf16 on
+// mma.sync: ~1024) plus its bytes from L2 (~32 a clock), a launch's as the
+// time of a block times the waves of blocks over the SMs (one block an SM).
+template <typename T> bool make_plan(int B, int D, int W, int br, int us, Plan& p) {
+  const int sms = device_attr(cudaDevAttrMultiProcessorCount);
+  const int smem = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  auto fits = [&](const Plan& q) {
+    return q.BR % 16 == 0 && q.BR >= 16 && q.US * (int)sizeof(T) % 16 == 0 &&
+           q.BR * 4 * q.US <= MAX_OUT && step_smem<T>(q) <= (size_t)smem;
+  };
+  if (br > 0 || us > 0) {
+    p = {br, us, ceil_div(B, br > 0 ? br : 1), ceil_div(W, us > 0 ? us : 1)};
+    return br > 0 && us > 0 && fits(p);
+  }
+  const double fma_rate = sizeof(T) == 4 ? 128.0 : 1024.0, byte_rate = 32.0;
+  double best = -1.0;
+  for (int BR : {64, 32, 16}) {
+    if (BR > 16 && BR - 16 >= B) continue;  // a tile that is mostly padding
+    for (int US : {32, 16, 8, 4}) {
+      if (BR > 16 && !fixed_tile(BR, US)) continue;  // wide row tiles: fixed ones
+      const Plan q{BR, US, ceil_div(B, BR), ceil_div(W, US)};
+      if (!fits(q)) continue;
+      const double block = (double)BR * 4 * US * (D + W) / fma_rate +
+                           (double)(BR + 4 * US) * (D + W) * sizeof(T) / byte_rate;
+      const double t = ceil_div(q.tiles * q.slices, sms > 0 ? sms : 1) * block;
+      if (best < 0.0 || t < best) {
+        best = t;
+        p = q;
+      }
+    }
+  }
+  return best >= 0.0;
+}
+
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
+
+template <typename T, int BR, int US> int run(const Args& a, cudaStream_t s) {
+  const size_t smem = step_smem<T>(a.p);
+  cudaError_t err = cudaFuncSetAttribute(lstm_step_kernel<T, BR, US>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  lstm_step_kernel<T, BR, US><<<a.p.tiles * a.p.slices, NT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* h, const void* c, const void* K, const void* R,
+           const void* b, void* h_out, void* c_out, int B, int D, int W, int br, int us,
+           cudaStream_t s) {
+  Args a{x, h, c, K, R, b, h_out, c_out, B, D, W, false, false, false, {}};
+  if (B < 1 || D < 1 || W < 1 || !make_plan<T>(B, D, W, br, us, a.p))
+    return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  a.vec_x = D % V == 0 && aligned16(x);
+  a.vec_h = W % V == 0 && aligned16(h);
+  a.vec_w = W % V == 0 && aligned16(K) && aligned16(R);
+  const int BR = a.p.BR, US = a.p.US;
+  if (BR == 64 && US == 32) return run<T, 64, 32>(a, s);
+  if (BR == 64 && US == 16) return run<T, 64, 16>(a, s);
+  if (BR == 32 && US == 32) return run<T, 32, 32>(a, s);
+  if (BR == 32 && US == 16) return run<T, 32, 16>(a, s);
+  return run<T, 0, 0>(a, s);
 }
 
 }  // namespace
@@ -153,16 +272,29 @@ extern "C" const char* cor_kernels_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// the tile a launch takes: out = {BR, US, row tiles, unit slices}; 0 if the
+// shapes (or the imposed br, us > 0) are refused
+extern "C" int lstm_step_plan(int dtype, int B, int D, int W, int br, int us, int* out) {
+  Plan p{};
+  const bool ok = dtype == 0   ? make_plan<float>(B, D, W, br, us, p)
+                  : dtype == 1 ? make_plan<__nv_bfloat16>(B, D, W, br, us, p)
+                               : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  out[0] = p.BR;
+  out[1] = p.US;
+  out[2] = p.tiles;
+  out[3] = p.slices;
+  return 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; br, us: the tile (0: picked here).
+// Returns cudaGetLastError() after the launch.
 extern "C" int lstm_step_launch(int dtype, const void* x, const void* h, const void* c,
                                 const void* K, const void* R, const void* b, void* h_out,
-                                void* c_out, int B, int D, int W, void* stream) {
+                                void* c_out, int B, int D, int W, int br, int us, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    launch<float>(x, h, c, K, R, b, h_out, c_out, B, D, W, s);
-  else if (dtype == 1)
-    launch<__nv_bfloat16>(x, h, c, K, R, b, h_out, c_out, B, D, W, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch<float>(x, h, c, K, R, b, h_out, c_out, B, D, W, br, us, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, h, c, K, R, b, h_out, c_out, B, D, W, br, us, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -54,7 +54,8 @@ What differs from the JAX package, and why:
 - window positions (t0, the expected position) are float32 in every
   compute dtype;
 - the decoder step has a second route through the fused CUDA kernel
-  K3 (ops/decode_step_kernel.py), see `_BEAM_STEP_KERNEL`.
+  K3 (ops/decode_step_kernel.py), see `_BEAM_STEP_KERNEL`, which reads
+  the window rows by index instead of gathering them.
 """
 
 import dataclasses
@@ -62,8 +63,9 @@ import dataclasses
 import torch
 
 from ..ops.attention import NEG, softmax
-from ..ops.decode_step_kernel import (fused_decode_step, fused_step_supported,
-                                      pack_weights, step_covers)
+from ..ops.decode_step_kernel import (fused_decode_step_indexed,
+                                      fused_step_supported, pack_weights,
+                                      step_covers)
 from ..ops.lstm import mm
 from . import seq2seq
 from .config import Seq2SeqConfig
@@ -137,11 +139,13 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     readout over the same input states (zero attention context,
     discarded LM states) is appended: (..., lm_probs (B,K,V)).
 
-    On the K3 route (`_BEAM_STEP_KERNEL`) the window rows are gathered
-    here, the (B, K) hypotheses flattened to rows and the rest of the
-    step is one launch of `fused_decode_step`, with `step_weights` (its
-    `pack_weights`, packed here when None); probs come back float32, the
-    states and the alignment rounded once to the dtypes they came in.
+    On the K3 route (`_BEAM_STEP_KERNEL`) the (B, K) hypotheses are
+    flattened to rows, line by line, and the rest of the step is one
+    launch of `fused_decode_step_indexed`, which reads each row's window
+    rows of `u` and `attended` by index (no gathered copy), with
+    `step_weights` (its `pack_weights`, packed here when None); probs
+    come back float32, the states and the alignment rounded once to the
+    dtypes they came in. The per-op route gathers the window rows.
     """
     depth = config.depth
     ww = config.window_width
@@ -156,9 +160,6 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     new_start = torch.clamp(torch.floor(t0).long() - ww, 0, max(T - WIN, 0))
     win_ix = torch.clamp(new_start[..., None]
                          + torch.arange(WIN, device=dev), max=T - 1)
-    rows = torch.arange(B, device=dev)[:, None, None]
-    u_w = u[rows, win_ix]                                  # (B,K,WIN,W)
-    att_w = attended[rows, win_ix]                         # (B,K,WIN,A)
     win_f = win_ix.to(F32)
     visible = torch.abs(t0[..., None] - win_f) <= ww
     if src_lengths is not None:
@@ -176,15 +177,18 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
             step_weights = pack_weights(
                 params, params['char_embedding']['kernel'].dtype)
         (h1, c1), (h2, c2) = layer_states
-        probs, h1n, c1n, h2n, c2n, align = fused_decode_step(
-            flat(feedback), flat(h1), flat(c1), flat(h2), flat(c2),
-            flat(u_w), flat(att_w), flat(visible), step_weights)
+        probs, h1n, c1n, h2n, c2n, align = fused_decode_step_indexed(
+            flat(feedback), flat(h1), flat(c1), flat(h2), flat(c2), u,
+            attended, K, flat(new_start), flat(visible), step_weights)
         exp_pos = (unflat(align) * win_f).sum(dim=-1)
         new_states = ((unflat(h1n.to(h1.dtype)), unflat(c1n.to(c1.dtype))),
                       (unflat(h2n.to(h2.dtype)), unflat(c2n.to(c2.dtype))))
         return (unflat(probs), new_states, unflat(align.to(aw.dtype)),
                 new_start, exp_pos)
 
+    rows = torch.arange(B, device=dev)[:, None, None]
+    u_w = u[rows, win_ix]                                  # (B,K,WIN,W)
+    att_w = attended[rows, win_ix]                         # (B,K,WIN,A)
     step = seq2seq.decode_step_fn(config)
     states = [(flat(h), flat(c)) for h, c in layer_states]
     out, new_states = seq2seq.decoder_lower_stack(params, config,

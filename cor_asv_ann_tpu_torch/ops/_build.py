@@ -4,7 +4,8 @@ Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
 ``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5,
 ``csrc/teacher_scan.cu``: K6 and K7, ``csrc/decode_step.cu``: K3; the
 last three share ``csrc/scan_common.cuh``, K4 and K5 also use
-``csrc/scan_grid.cuh``) is compiled by ``nvcc`` for
+``csrc/scan_grid.cuh``, K2 and K3 ``csrc/step_tile.cuh`` over it) is
+compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into
 one shared library with a plain C interface under ``build/kernels/`` at
 the repo root, and loaded with ``ctypes``. The library's name carries a hash of
@@ -28,7 +29,7 @@ CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build', 'kernels')
 SOURCES = ('lstm_step.cu', 'decode_loop.cu', 'lstm_scan.cu',
            'teacher_scan.cu', 'decode_step.cu')
-HEADERS = ('scan_common.cuh', 'scan_grid.cuh')
+HEADERS = ('scan_common.cuh', 'scan_grid.cuh', 'step_tile.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -37,7 +38,8 @@ I = ctypes.c_int
 # exported C functions: name -> (restype, argtypes)
 SIGNATURES = {
     'cor_kernels_error_string': (ctypes.c_char_p, [I]),
-    'lstm_step_launch': (I, [I] + [P] * 8 + [I] * 3 + [P]),
+    'lstm_step_plan': (I, [I] * 6 + [P]),
+    'lstm_step_launch': (I, [I] + [P] * 8 + [I] * 5 + [P]),
     'decode_loop_smem_bytes': (ctypes.c_longlong, [I] * 4),
     'decode_loop_launch': (I, [P] * 19 + [P] * 4 + [I] * 8 + [P]),
     'lstm_scan_max_width': (I, []),
@@ -48,7 +50,8 @@ SIGNATURES = {
     'teacher_fwd_launch': (I, [I] + [P] * 17 + [I] * 6 + [P]),
     'teacher_bwd_launch': (I, [I] + [P] * 24 + [I] * 6 + [P]),
     'decode_step_supported': (I, [I] * 4),
-    'decode_step_launch': (I, [I] * 2 + [P] * 2 + [I] * 5 + [P]),
+    'decode_step_rows_per_tile': (I, [I] * 4),
+    'decode_step_launch': (I, [I] * 2 + [P] * 2 + [I] * 8 + [P]),
 }
 
 _lock = threading.Lock()

@@ -4,11 +4,15 @@ Replaces the JAX package's Pallas kernel ``ops/pallas_lstm.py:
 _lstm_step_kernel`` (``lstm_step_fused`` / ``lstm_step_auto``):
 ``z = r(x.K) + r(h.R) + b`` with Keras gates (i, f, c~, o), where r()
 rounds a float32-accumulated product to the weight dtype. Float32 and
-bfloat16 weights are supported; outputs follow the weight dtype.
+bfloat16 weights are supported; outputs follow the weight dtype. A block
+of the kernel owns a tile of rows and a slice of units (their four gate
+columns); the launcher picks the tile from the shapes (`step_plan`).
 
 The plain twin is ``ops/lstm.py:lstm_step``. The wrapper takes it for
 CPU tensors only; for CUDA tensors it launches the kernel or raises.
 """
+
+import ctypes
 
 import torch
 
@@ -18,9 +22,27 @@ from .lstm import lstm_step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def lstm_step_fused(x, h, c, kernel, recurrent_kernel, bias):
+_PLAN_KEYS = ('rows_per_tile', 'units_per_slice', 'row_tiles',
+              'unit_slices')
+
+
+def step_plan(dtype, B, D, W, rows_per_tile=0, units_per_slice=0):
+    """The tile a launch on the current CUDA device takes (the launcher's
+    pick, or the imposed one) as a dict of `_PLAN_KEYS`; raises where it
+    is refused."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = _build.library().lstm_step_plan(_DTYPE_CODES[dtype], B, D, W,
+                                          rows_per_tile, units_per_slice, out)
+    _build.check(err, 'lstm_step plan')
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def lstm_step_fused(x, h, c, kernel, recurrent_kernel, bias, *,
+                    rows_per_tile=0, units_per_slice=0):
     """Fused LSTM step: x (B, D), h/c (B, W) -> (h', c') in the weight
-    dtype. Same semantics as ``ops.lstm.lstm_step``."""
+    dtype. Same semantics as ``ops.lstm.lstm_step``. `rows_per_tile` and
+    `units_per_slice` impose the kernel's tile (tests; 0: the
+    launcher's pick)."""
     dt = kernel.dtype
     x, h, c = (t.to(dt).contiguous() for t in (x, h, c))
     tensors = (x, h, c, kernel, recurrent_kernel, bias)
@@ -48,10 +70,12 @@ def lstm_step_fused(x, h, c, kernel, recurrent_kernel, bias):
     h_out = torch.empty((B, W), dtype=dt, device=dev)
     c_out = torch.empty((B, W), dtype=dt, device=dev)
     lib = _build.library()
-    err = lib.lstm_step_launch(
-        _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors),
-        h_out.data_ptr(), c_out.data_ptr(), B, D, W, _build.stream_of(x))
-    _build.check(err, 'lstm_step kernel')
+    with torch.cuda.device(dev):
+        err = lib.lstm_step_launch(
+            _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors),
+            h_out.data_ptr(), c_out.data_ptr(), B, D, W, rows_per_tile,
+            units_per_slice, _build.stream_of(x))
+    _build.check(err, 'lstm_step kernel (B=%d D=%d W=%d)' % (B, D, W))
     lstm_step_fused.launches += 1
     return h_out, c_out
 

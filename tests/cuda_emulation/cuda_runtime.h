@@ -1,8 +1,8 @@
 // Stand-in for <cuda_runtime.h> that lets a host C++20 compiler build the
-// port's scan kernels (csrc/lstm_scan.cu, csrc/teacher_scan.cu,
+// port's kernels (csrc/lstm_step.cu, csrc/lstm_scan.cu, csrc/teacher_scan.cu,
 // csrc/decode_step.cu) and run them on the CPU: one OS thread per CUDA thread,
-// __syncthreads as a barrier over the block, warp shuffles and the bf16
-// tensor-core instruction through a per-warp exchange buffer. The blocks of a
+// __syncthreads as a barrier over the block, warp shuffles, __syncwarp, the
+// bf16 tensor-core instruction and ldmatrix through per-warp exchange buffers. The blocks of a
 // `<<<...>>>` launch run one after another; the blocks of a cooperative launch
 // (cudaLaunchCooperativeKernel) all at once, on a card of EMU_SM_COUNT SMs
 // that holds one block per SM, so that blocks can wait on each other through
@@ -29,7 +29,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 using std::max;
 using std::min;
@@ -44,8 +44,8 @@ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c,
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorCooperativeLaunchTooLarge = 720 };
 typedef void* cudaStream_t;
-enum {
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr {
   cudaDevAttrMultiProcessorCount = 16,
   cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
 };
@@ -58,8 +58,9 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes <= EMU_MAX_SMEM ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
   *v = attr == cudaDevAttrMultiProcessorCount ? EMU_SM_COUNT : EMU_MAX_SMEM;
   return cudaSuccess;
 }
@@ -95,6 +96,7 @@ struct Block {
   std::vector<std::unique_ptr<std::barrier<>>> wbar;   // one per warp
   std::vector<uint32_t> xch;                           // shuffle exchange, one word per thread
   std::vector<uint32_t> mma;                           // mma fragments, 6 words per thread
+  std::vector<const void*> rows;                       // ldmatrix row addresses, one per thread
   std::vector<float4> smem;                            // dynamic shared memory
 };
 extern thread_local Block* cur;
@@ -107,6 +109,7 @@ inline std::unique_ptr<Block> new_block(int nt, size_t smem_bytes) {
   for (int w = 0; w < nt / 32; ++w) blk->wbar.push_back(std::make_unique<std::barrier<>>(32));
   blk->xch.assign(nt, 0);
   blk->mma.assign((size_t)nt * 6, 0);
+  blk->rows.assign(nt, nullptr);
   // poisoned, so that a read of scratch that was never written shows
   blk->smem.assign(smem_bytes / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
   return blk;
@@ -148,6 +151,11 @@ cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(A...), int grid, int nt, 
 }
 
 inline void __syncthreads() { emu::cur->bar->arrive_and_wait(); }
+
+// every lane of the warp must call it, as the kernels do
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::cur->wbar[threadIdx.x / 32]->arrive_and_wait(); }
+
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 // every lane of the warp must call it, as the kernels do
 template <class V> V __shfl_xor_sync(unsigned, V v, int lane_mask) {
@@ -200,4 +208,56 @@ inline void mma_bf16_m16n8k16_standin(float (&d)[4], const uint32_t (&a)[4], con
   }
   blk->wbar[w]->arrive_and_wait();
   for (int e = 0; e < 4; ++e) d[e] = out[e];
+}
+
+// ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 for the warp: lanes 0-7 name
+// the rows (8 consecutive 16-bit values each) of matrix 0, lanes 8-15 those of
+// matrix 1; lane l receives in r[i] the elements (row 2*(l%4), column l/4)
+// and (row 2*(l%4)+1, column l/4) of matrix i, the first in the lower half.
+// Every lane of the warp must call it.
+inline void ldmatrix_x2_trans_standin(uint32_t (&r)[2], const void* row) {
+  emu::Block* blk = emu::cur;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
+  blk->rows[t] = row;
+  blk->wbar[w]->arrive_and_wait();
+  const int g = lane / 4, q = lane % 4;
+  uint32_t out[2];
+  for (int i = 0; i < 2; ++i) {
+    uint16_t lo, hi;
+    std::memcpy(&lo, static_cast<const uint16_t*>(blk->rows[base + 8 * i + 2 * q]) + g, 2);
+    std::memcpy(&hi, static_cast<const uint16_t*>(blk->rows[base + 8 * i + 2 * q + 1]) + g, 2);
+    out[i] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  blk->wbar[w]->arrive_and_wait();
+  r[0] = out[0];
+  r[1] = out[1];
+}
+
+// ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16 for the warp: lanes 8m ..
+// 8m+7 name the rows of matrix m; lane l receives in r[m] the elements (row
+// l/4, columns 2*(l%4), 2*(l%4)+1) of matrix m, or with `trans` (rows
+// 2*(l%4), 2*(l%4)+1, column l/4), the first in the lower half. Every lane of
+// the warp must call it.
+inline void ldmatrix_x4_standin(uint32_t (&r)[4], const void* row, bool trans) {
+  emu::Block* blk = emu::cur;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
+  blk->rows[t] = row;
+  blk->wbar[w]->arrive_and_wait();
+  const int g = lane / 4, q = lane % 4;
+  uint32_t out[4];
+  for (int m = 0; m < 4; ++m) {
+    uint16_t lo, hi;
+    const void* rows[8];
+    for (int i = 0; i < 8; ++i) rows[i] = blk->rows[base + 8 * m + i];
+    if (trans) {
+      std::memcpy(&lo, static_cast<const uint16_t*>(rows[2 * q]) + g, 2);
+      std::memcpy(&hi, static_cast<const uint16_t*>(rows[2 * q + 1]) + g, 2);
+    } else {
+      std::memcpy(&lo, static_cast<const uint16_t*>(rows[g]) + 2 * q, 2);
+      std::memcpy(&hi, static_cast<const uint16_t*>(rows[g]) + 2 * q + 1, 2);
+    }
+    out[m] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  blk->wbar[w]->arrive_and_wait();
+  for (int m = 0; m < 4; ++m) r[m] = out[m];
 }

@@ -36,12 +36,16 @@ def dev():
 
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize('B,D,W', [(5, 24, 40), (16, 1024, 512),
-                                   (100, 512, 512)])
+@pytest.mark.parametrize('B,D,W', [
+    (5, 24, 40), (100, 512, 512), (1, 512, 512), (1, 1024, 512),
+    (16, 512, 512), (16, 1024, 512), (256, 512, 512), (256, 1024, 512),
+    (257, 512, 512), (257, 1024, 512)])
 def test_lstm_step_kernel(dev, dtype, tol, B, D, W):
-    """Ragged batch and width tiles included; f32 differs from the plain
-    version only in summation order, bf16 by at most one ulp of the
-    rounded products."""
+    """Greedy serving's batches (1, 16), the decoder's B = 256 with the
+    lower layers' D = W and the top cell's D = W + A, a ragged row tile
+    (257, 100) and ragged width tiles; f32 differs from the plain version
+    only in summation order, bf16 by at most one ulp of the rounded
+    products."""
     rng = np.random.default_rng(0)
     arrays = [rng.uniform(-1, 1, (B, D)), rng.uniform(-1, 1, (B, W)),
               rng.uniform(-1, 1, (B, W)), rng.normal(0, 0.05, (D, 4 * W)),
@@ -58,6 +62,36 @@ def test_lstm_step_kernel(dev, dtype, tol, B, D, W):
                                rtol=0 if dtype == torch.float32 else tol)
     torch.testing.assert_close(ck.float(), cp.float(), atol=tol,
                                rtol=0 if dtype == torch.float32 else tol)
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize('br,us', [(16, 8), (32, 16), (64, 16)])
+def test_lstm_step_kernel_imposed_tiles(dev, dtype, tol, br, us):
+    """Row tiles and unit slices the launcher may pick, imposed at B =
+    100, D = 1024, W = 512 (ragged row tiles): each against the plain
+    version, and two launches of one tile give the same bits (a small
+    tile splits the reduction among warps, in a fixed order)."""
+    from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import step_plan
+    rng = np.random.default_rng(1)
+    B, D, W = 100, 1024, 512
+    arrays = [rng.uniform(-1, 1, (B, D)), rng.uniform(-1, 1, (B, W)),
+              rng.uniform(-1, 1, (B, W)), rng.normal(0, 0.05, (D, 4 * W)),
+              rng.normal(0, 0.05, (W, 4 * W)), rng.normal(0, 0.5, (4 * W,))]
+    args = [torch.from_numpy(a.astype(np.float32)).to(dtype).to(dev)
+            for a in arrays]
+    plan = step_plan(dtype, B, D, W, br, us)
+    assert (plan['rows_per_tile'], plan['units_per_slice']) == (br, us)
+    got = lstm_step_fused(*args, rows_per_tile=br, units_per_slice=us)
+    again = lstm_step_fused(*args, rows_per_tile=br, units_per_slice=us)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    want = lstm_step(*args[:3], {'kernel': args[3],
+                                 'recurrent_kernel': args[4],
+                                 'bias': args[5]})
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                   rtol=0 if dtype == torch.float32 else tol)
 
 
 def test_lstm_step_kernel_refuses_mixed_devices(dev):
@@ -479,7 +513,23 @@ def _step_inputs(dev, wdtype, udtype, N, V, W, A, WIN, seed):
     weights = {k: mk(s, s[0] ** -0.5 if len(s) > 1 else .1,
                      torch.float32 if k in dsk._BIASES else wdtype)
                for k, s in shapes.items()}
+    weights.update(dsk.kernel_layouts(weights))
     return [fb, *states, u_w, att_w, visible], weights
+
+
+def _indexed_windows(dev, udtype, N, W, A, WIN, rows_per_line, T, seed):
+    """u, attended (lines, T, .) and window starts for N rows: starts
+    over the whole line, so windows run off its end (clamped at T - 1),
+    and row 0 at 0."""
+    rng = np.random.default_rng(seed)
+    lines = -(-N // rows_per_line)
+    u, att = (torch.from_numpy(rng.normal(0, .5, (lines, T, n))
+                               .astype(np.float32)).to(udtype).to(dev)
+              for n in (W, A))
+    start = torch.from_numpy(rng.integers(0, max(T - WIN // 2, 1), N)
+                             .astype(np.int32)).to(dev)
+    start[0] = 0
+    return u, att, start
 
 
 @pytest.mark.parametrize('wdtype,udtype,tol', [
@@ -507,6 +557,39 @@ def test_decode_step_kernel(dev, wdtype, udtype, tol, N, V, W, A, WIN):
         torch.testing.assert_close(g, w, atol=tol, rtol=0)
     if N > 1:
         assert float(got[5][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize('N,rows_per_line', [
+    (512, 32), (768, 48), (4096, 32), (8192, 32), (12288, 48), (770, 5)])
+def test_decode_step_kernel_both_forms(dev, dtype, tol, N, rows_per_line):
+    """K3 at the rows of every beam step of the flagship's widths (chip
+    smoke's STEP_ROWS: 16, 32 and 64-row tiles) and an odd N: the gathered
+    and the indexed form against the plain version (float32 2e-5; bfloat16
+    weights and windows 2e-3), and equal to each other bit for bit on the
+    same window rows."""
+    from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
+    V, W, A, WIN, T = 45, 512, 512, 12, 64
+    acts, weights = _step_inputs(dev, dtype, dtype, N, V, W, A, WIN, N)
+    u, att, start = _indexed_windows(dev, dtype, N, W, A, WIN,
+                                     rows_per_line, T, N + 1)
+    u_w, att_w = dsk.gather_windows(u, att, rows_per_line, start, WIN)
+    gathered = acts[:5] + [u_w, att_w, acts[7]]
+    before = (dsk.fused_decode_step.launches,
+              dsk.fused_decode_step_indexed.launches)
+    got_g = dsk.fused_decode_step(*gathered, weights)
+    got_i = dsk.fused_decode_step_indexed(*acts[:5], u, att, rows_per_line,
+                                          start, acts[7], weights)
+    torch.cuda.synchronize()
+    assert (dsk.fused_decode_step.launches,
+            dsk.fused_decode_step_indexed.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = dsk.fused_decode_step_reference(*gathered, weights)
+    for g, i, w in zip(got_g, got_i, want):
+        assert torch.equal(g, i)
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+    assert float(got_i[5][1].abs().max()) == 0.0
 
 
 def test_decode_step_kernel_refuses_what_it_cannot_take(dev):
@@ -560,11 +643,14 @@ def test_beam_through_the_step_kernel(dev, compute):
     for mode in ('off', 'on'):
         beam._BEAM_STEP_KERNEL = mode
         try:
-            before = dsk.fused_decode_step.launches
+            before = (dsk.fused_decode_step.launches,
+                      dsk.fused_decode_step_indexed.launches)
             out[mode] = beam.decode_beam(pt, config, bp, enc,
                                          mapping.get('\n'), src_len,
                                          return_trace=True)
-            launched = dsk.fused_decode_step.launches - before
+            # the beam reads the window rows by index: no gathered launch
+            assert dsk.fused_decode_step.launches == before[0]
+            launched = dsk.fused_decode_step_indexed.launches - before[1]
         finally:
             beam._BEAM_STEP_KERNEL = 'auto'
         assert launched == (out[mode]['trace']['t'] if mode == 'on' else 0)

@@ -1,11 +1,13 @@
-"""PyTorch port: the CUDA sources of the scan kernels and of the fused
-decode step, run on the CPU.
+"""PyTorch port: the CUDA sources of the LSTM step, the scan kernels and
+the fused decode step, run on the CPU.
 
 There is no GPU and no ``nvcc`` where these tests run, but the kernels
-K3-K7 (``csrc/decode_step.cu``, ``csrc/lstm_scan.cu``,
-``csrc/teacher_scan.cu`` over ``csrc/scan_common.cuh``) use few CUDA
-constructs: blocks of threads, a
-block barrier, warp shuffles, dynamic shared memory, bf16 conversions.
+K2-K7 (``csrc/lstm_step.cu``, ``csrc/decode_step.cu``,
+``csrc/lstm_scan.cu``, ``csrc/teacher_scan.cu`` over
+``csrc/scan_common.cuh``, ``csrc/scan_grid.cuh``, ``csrc/step_tile.cuh``)
+use few CUDA constructs: blocks of threads, a block barrier, warp
+shuffles, dynamic shared memory, bf16 conversions, ``mma.sync``,
+``ldmatrix``, ``cp.async``.
 ``tests/cuda_emulation/`` holds stand-ins for ``cuda_runtime.h`` and
 ``cuda_bf16.h`` that give a host compiler exactly those (one OS thread
 per CUDA thread, blocks one after another). With the launch syntax
@@ -43,7 +45,7 @@ HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # source -> (<<<...>>> launches, kernels declaring dynamic shared memory);
 # lstm_scan.cu launches its two kernels through cudaLaunchCooperativeKernel
 SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (2, 2),
-           'decode_step.cu': (1, 1)}
+           'decode_step.cu': (5, 4), 'lstm_step.cu': (1, 1)}
 CODE = {torch.float32: 0, torch.bfloat16: 1}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DTYPES = pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -74,7 +76,7 @@ def lib(tmp_path_factory):
         with open(os.path.join(_build.CSRC_DIR, name)) as f:
             src = f.read()
         src, n_launch = re.subn(
-            r'(\w+<T(?:, U)?>)<<<(.*?), (\w+), (\w+), (\w+)>>>\(',
+            r'(\w+<[\w, ]+>)<<<(.*?), (\w+), (\w+), (\w+)>>>\(',
             r'emu::launch(\2, \3, \4, \1, ', src)
         src, n_smem = re.subn(r'extern __shared__ float4 smem4\[\];',
                               'float4* smem4 = emu::smem();', src)
@@ -90,7 +92,8 @@ def lib(tmp_path_factory):
     assert built.returncode == 0, built.stdout
     library = ctypes.CDLL(str(out))
     for name, (restype, argtypes) in _build.SIGNATURES.items():
-        if name.startswith(('lstm_scan', 'teacher', 'decode_step')):
+        if name.startswith(('lstm_scan', 'lstm_step', 'teacher',
+                            'decode_step')):
             fn = getattr(library, name)
             fn.restype, fn.argtypes = restype, argtypes
     return library
@@ -276,41 +279,160 @@ def _step_inputs(dtype, udtype, N, V, W, A, WIN, seed):
     weights = {k: _mk(rng, shape, .3,
                       torch.float32 if k in dsk._BIASES else dtype)
                for k, shape in shapes.items()}
+    weights.update(dsk.kernel_layouts(weights))
     return [fb, *states, u_w, att_w, visible], weights
 
 
-# (N, V, W, A, WIN): N no multiple of the row tile, V above and below W,
-# widths that leave threads to split a product's reduction
-STEP_SHAPES = [(6, 11, 16, 24, 12), (5, 45, 40, 8, 4), (1, 7, 8, 16, 1)]
+def _launch_step(lib, dtype, acts, weights, win_start=None, rows_per_line=0,
+                 br=0):
+    """One emulated launch of K3 (gathered windows where `rows_per_line`
+    is 0, else by index); its six outputs, NaN where it wrote nothing."""
+    fb, h1, _, _, _, u, att, visible = acts
+    N, V = fb.shape
+    W, A, WIN = h1.shape[1], att.shape[-1], visible.shape[1]
+    T = u.shape[1] if rows_per_line else 0
+    starts = (torch.zeros(1, dtype=torch.int32) if win_start is None
+              else win_start.to(torch.int32).contiguous())
+    ins = list(acts[:7]) + [visible.to(torch.uint8), starts] \
+        + [weights[k] for k in dsk._KERNEL_ORDER]
+    got = [torch.full(s, float('nan')) for s in
+           ((N, V), (N, W), (N, W), (N, W), (N, W), (N, WIN))]
+    Vp = -(-V // 16) * 16
+    scratch = [torch.full((N, Vp + 5 * W + A), float('nan')).to(dtype),
+               torch.full((N, W), float('nan'))]
+    in_ptrs = (ctypes.c_void_p * len(ins))(*_ptrs(ins))
+    out_ptrs = (ctypes.c_void_p * (len(got) + 2))(*_ptrs(got + scratch))
+    err = lib.decode_step_launch(CODE[dtype], CODE[u.dtype], in_ptrs,
+                                 out_ptrs, N, V, W, A, WIN, rows_per_line, T,
+                                 br, None)
+    assert err == 0
+    return got
+
+
+# (N, V, W, A, WIN, rows of a product tile; 0: the launcher's pick): N no
+# multiple of the row tile (and two tiles of 64 rows), V above and below W
+# (two readout slices at V = 150), W no whole slice of 32 units and below a
+# product's 128 columns, WIN of 1
+STEP_SHAPES = [(6, 150, 16, 24, 12, 0), (70, 45, 40, 8, 4, 64),
+               (1, 7, 8, 16, 1, 0)]
 
 
 @DTYPES
 @pytest.mark.parametrize('udtype', [torch.float32, torch.bfloat16],
                          ids=['windows32', 'windows16'])
-@pytest.mark.parametrize('N,V,W,A,WIN', STEP_SHAPES)
-def test_emulated_decode_step(lib, dtype, udtype, N, V, W, A, WIN):
-    """K3 against its plain version. bfloat16: an operand that rounds the
-    other way (tanhf against torch.tanh) moves a sum by an ulp of bf16."""
+@pytest.mark.parametrize('N,V,W,A,WIN,br', STEP_SHAPES)
+def test_emulated_decode_step(lib, dtype, udtype, N, V, W, A, WIN, br):
+    """K3 on gathered windows against its plain version. bfloat16: an
+    operand that rounds the other way (tanhf against torch.tanh) moves a
+    sum by an ulp of bf16."""
     acts, weights = _step_inputs(dtype, udtype, N, V, W, A, WIN, seed=N)
     want = dsk.fused_decode_step_reference(*acts, weights)
-    got = [torch.full_like(w, float('nan')) for w in want]
-    ins = acts + [weights[k] for k in dsk._WEIGHT_ORDER]
-    in_ptrs = (ctypes.c_void_p * len(ins))(*_ptrs(ins))
-    out_ptrs = (ctypes.c_void_p * len(got))(*_ptrs(got))
-    err = lib.decode_step_launch(CODE[dtype], CODE[udtype], in_ptrs,
-                                 out_ptrs, N, V, W, A, WIN, None)
-    assert err == 0
+    got = _launch_step(lib, dtype, acts, weights, br=br)
     _assert_close(got, want, TOL[dtype],
                   ('probs', 'h1', 'c1', 'h2', 'c2', 'align'))
     if N > 1:
         assert float(got[5][1].abs().max()) == 0.0    # the all-masked row
 
 
+@DTYPES
+@pytest.mark.parametrize('rows_per_line,br', [(1, 0), (5, 128)])
+def test_emulated_decode_step_indexed(lib, dtype, rows_per_line, br):
+    """K3 reading the window rows by index: equal to the gathered form on
+    the gathered rows, bit for bit, and close to the plain version; 21
+    rows (a 128-row product tile where imposed: bfloat16 only), windows
+    that run off both ends of a line of T = 9 encoder rows and clamp at
+    T - 1."""
+    if br == 128 and dtype == torch.float32:
+        br = 64       # float32 products take 64-row tiles only
+    N, V, W, A, WIN, T = 21, 13, 16, 24, 12, 9
+    acts, weights = _step_inputs(dtype, torch.bfloat16, N, V, W, A, WIN,
+                                 seed=3)
+    rng = np.random.default_rng(4)
+    lines = -(-N // rows_per_line)
+    u = _mk(rng, (lines, T, W), .5, torch.bfloat16)
+    att = _mk(rng, (lines, T, A), .5, torch.bfloat16)
+    win_start = torch.from_numpy(rng.integers(0, T, N).astype(np.int32))
+    win_start[0] = 0
+    u_w, att_w = dsk.gather_windows(u, att, rows_per_line, win_start, WIN)
+    acts_g = acts[:5] + [u_w, att_w] + acts[7:]
+    want = dsk.fused_decode_step_reference(*acts_g, weights)
+    got = _launch_step(lib, dtype, acts[:5] + [u, att] + acts[7:], weights,
+                       win_start, rows_per_line, br)
+    gathered = _launch_step(lib, dtype, acts_g, weights, br=br)
+    for g, w in zip(got, gathered):
+        assert torch.equal(g, w)
+    _assert_close(got, want, TOL[dtype],
+                  ('probs', 'h1', 'c1', 'h2', 'c2', 'align'))
+    # the indexed plain version is the gather and the plain version
+    plain = dsk.fused_decode_step_indexed(*acts[:5], u, att, rows_per_line,
+                                          win_start, acts[7], weights)
+    for p, w in zip(plain, want):
+        assert torch.equal(p, w)
+
+
+def _plan_k2(lib, dtype, B, D, W, br=0, us=0):
+    out = (ctypes.c_int * 4)()
+    err = lib.lstm_step_plan(CODE[dtype], B, D, W, br, us, out)
+    return None if err else tuple(out)
+
+
+@DTYPES
+@pytest.mark.parametrize('B', [1, 16, 40])
+@pytest.mark.parametrize('D,W,br,us', [(24, 40, 0, 0), (24, 40, 16, 8),
+                                       (136, 16, 32, 16)])
+def test_emulated_lstm_step(lib, dtype, B, D, W, br, us):
+    """K2 against ops/lstm.py:lstm_step: the launcher's tile and imposed
+    ones (row tiles of 16 and 32, ragged at B = 40; a ragged unit slice
+    at W = 40; x.K over several chunks at D = 136). float32 differs in
+    summation order; bfloat16 by an ulp where a float32 sum rounds the
+    other way."""
+    from cor_asv_ann_tpu_torch.ops.lstm import lstm_step
+    rng = np.random.default_rng(B + D)
+    x, h, c = (_mk(rng, s, .7, dtype) for s in ((B, D), (B, W), (B, W)))
+    K, R = _mk(rng, (D, 4 * W), .3, dtype), _mk(rng, (W, 4 * W), .3, dtype)
+    b = _mk(rng, (4 * W,), .5, dtype)
+    want = lstm_step(x, h, c, {'kernel': K, 'recurrent_kernel': R,
+                               'bias': b})
+    got = [torch.full_like(w, float('nan')) for w in want]
+    err = lib.lstm_step_launch(CODE[dtype], *_ptrs([x, h, c, K, R, b] + got),
+                               B, D, W, br, us, None)
+    assert err == 0
+    _assert_close(got, want, 1e-5 if dtype == torch.float32 else 1e-2,
+                  ('h', 'c'))
+    plan = _plan_k2(lib, dtype, B, D, W, br, us)
+    assert plan[2] == -(-B // plan[0]) and plan[3] == -(-W // plan[1])
+
+
+def test_emulated_lstm_step_plans(lib):
+    """The tiles the launcher picks on 6 SMs, and what it refuses."""
+    # B = 256, D = 1024, W = 512 (the decoder's top cell): 64 rows x 16
+    # units in float32 (64 x 32 needs more shared memory than a block has
+    # with 512-byte chunks)
+    assert _plan_k2(lib, torch.float32, 256, 1024, 512) == (64, 16, 4, 32)
+    # greedy serving's batches: one tile of 16 rows
+    assert _plan_k2(lib, torch.bfloat16, 16, 1024, 512)[0] == 16
+    assert _plan_k2(lib, torch.float32, 1, 512, 512)[0] == 16
+    # no tile of rows that are not whole mma tiles, or of more outputs
+    # than the accumulators hold; bf16 slices of whole 16-byte pieces
+    assert _plan_k2(lib, torch.float32, 40, 24, 40, 24, 8) is None
+    assert _plan_k2(lib, torch.float32, 40, 24, 40, 64, 64) is None
+    assert _plan_k2(lib, torch.float32, 40, 24, 40, 64, 32) is None
+    assert _plan_k2(lib, torch.bfloat16, 40, 24, 40, 16, 4) is None
+
+
 def test_emulated_launchers_refuse_what_the_kernels_cannot_take(lib):
     assert lib.decode_step_supported(45, 512, 512, 12) == 1
-    # scratch beyond a block's shared memory, ragged widths
-    assert lib.decode_step_supported(45, 2048, 2048, 12) == 0
+    assert lib.decode_step_supported(45, 2048, 2048, 12) == 1
+    # 64 rows' logits beyond a block's shared memory, ragged widths
+    assert lib.decode_step_supported(4096, 512, 512, 12) == 0
     assert lib.decode_step_supported(45, 12, 16, 12) == 0
+    # 128-row product tiles in bf16 where the LSTM stages' 16 slices of
+    # W = 512 in ceil(N / 128) row tiles still cover the 6 SMs here
+    assert lib.decode_step_rows_per_tile(1, 5000, 512, 0) == 128
+    assert lib.decode_step_rows_per_tile(1, 40, 40, 0) == 64
+    assert lib.decode_step_rows_per_tile(0, 5000, 512, 0) == 64
+    assert lib.decode_step_rows_per_tile(0, 50, 512, 128) == 0
+    assert lib.decode_step_rows_per_tile(1, 50, 512, 32) == 0
     assert lib.teacher_scan_supported(512, 512, 5) == 1
     assert lib.teacher_scan_supported(768, 768, 5) == 1
     # scratch beyond a block's shared memory, no window, ragged widths

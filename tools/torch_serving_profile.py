@@ -19,8 +19,10 @@ switched off as well. With ``--beam`` it serves the same lines through
 ``correct_lines(greedy=False)`` (rejection 0.3, automatic bounds R=32,
 K=48): float32 at B=256 on the per-op route, bfloat16 at B=256 and at
 B=16 through the fused decode-step kernel and with it switched off; it
-adds the beam's iterations, the launches per iteration and the
-decode-step kernel's share of the device time. For each regime it
+adds the beam's iterations, the launches per iteration, the
+decode-step kernel's share of the device time and the launches and time
+of advanced-indexing kernels (the per-op route gathers the window rows
+with two of them an iteration; the K3 route reads them by index). For each regime it
 prints the wall time under the profiler, the device busy time summed
 over kernels (so the idle share of the device), the kernel launch count
 and the top kernels by device time, from ``torch.profiler``. Writes each trace as a chrome
@@ -38,6 +40,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, 'testmodels', 'flagship.d2.w512.synthetic.h5')
+# the CUDA kernels of the fused decode step (csrc/decode_step.cu: one
+# launch of each per step)
+K3_KERNELS = ('step_prep_kernel', 'step_xw_kernel', 'step_lstm_kernel',
+              'step_attention_kernel', 'step_readout_kernel')
 
 
 def profile(torch, run, n_lines, name, out_dir, beam_steps=None):
@@ -77,8 +83,14 @@ def profile(torch, run, n_lines, name, out_dir, beam_steps=None):
             beam_iterations=steps,
             launches_per_iteration=launches / max(steps, 1),
             decode_step_kernel_share=sum(
-                k[2] for k in kernels if 'decode_step_kernel' in k[0])
-            / max(busy_ms, 1e-9))
+                k[2] for k in kernels if any(n in k[0] for n in K3_KERNELS))
+            / max(busy_ms, 1e-9),
+            # advanced indexing (the per-op route's window gathers are
+            # two of these an iteration)
+            index_kernel_launches=sum(
+                k[1] for k in kernels if 'index_elementwise' in k[0]),
+            index_kernel_ms=sum(
+                k[2] for k in kernels if 'index_elementwise' in k[0]))
     print(json.dumps(summary))
     return summary
 
