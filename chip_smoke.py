@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 port's CUDA kernels from ``cor_asv_ann_tpu_torch/csrc`` into
-``build/kernels/`` (five sources), holds each of the seven kernels
+``build/kernels/`` (six sources), holds each of the seven kernels
 against its plain PyTorch version at the shapes the main paths give it,
 and drives the three paths of the port:
 
@@ -803,11 +803,30 @@ def scan_plans(torch):
                 'ptxas info    : ', '')))
 
 
+def kernel_device_ms(torch, fn, pattern):
+    """{kernel name: (device ms, launches)} of one fn() call under
+    torch.profiler, for the CUDA kernels whose name matches `pattern`."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(pattern, e.key)
+        us = e.self_device_time_total
+        if found and us > 0:
+            ms, n = out.get(found.group(0), (0.0, 0))
+            out[found.group(0)] = (ms + us / 1e3, n + e.count)
+    return out
+
+
 def teacher_times(torch, dev, dt):
     """K6 and K7 at the flagship training shape, with dropout masks:
-    kernel (the wrapper, which for K7 also transposes the three weights
-    and zeroes du/datt), plain version and bound. No single PyTorch call
-    computes either function, so there is no library yardstick."""
+    kernel (the wrapper, which for K7 also transposes W_a, zeroes du/datt
+    and allocates its scratch), plain version, bound, and K7's split over
+    its stage kernels. No single PyTorch call computes either function,
+    so there is no library yardstick."""
     from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
     B, Td, T, W, A, ww = TEACHER_SHAPES[0]
     ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A, True, 11)
@@ -852,6 +871,23 @@ def teacher_times(torch, dev, dt):
         + 2 * nnz * (2 * A + 3 * W)
     out['bwd_bound_ms'], out['bwd_bound_by'] = bound(bwd_bytes, bwd_flops,
                                                      name)
+    # the bound counts du and datt once; the sweep read-modify-writes the
+    # visible rows of both every step
+    out['bwd_window_rmw_gb'] = 8 * nnz * (W + A) / 1e9
+    # where K7's time goes: its stage kernels under the profiler
+    split = kernel_device_ms(torch, lambda: tk.teacher_bwd(*bwd_args),
+                             r'teacher_bwd_\w+')
+    stages = ['teacher_bwd_' + s for s in tk.BWD_STAGES]
+    if split:
+        check(sorted(split) == sorted(stages), 'K7 launched %s' % split)
+        out['bwd_stages_ms'] = {k[len('teacher_bwd_'):]: split[k][0]
+                                for k in stages}
+        print('K7 %s stage split (device ms, launches): %s' % (
+            name, ', '.join('%s %.3f (%d)' % (k[len('teacher_bwd_'):],
+                                               *split[k]) for k in stages)))
+    else:
+        print('K7 %s stage split: not measured (the profiler saw no device '
+              'time)' % name)
     for k, which in (('K6', 'fwd'), ('K7', 'bwd')):
         print('%s %s B=%d Td=%d T=%d W=%d A=%d: kernel %.3f ms, plain %.3f '
               'ms, bound %.4f ms (%s; %d visible positions, %d rows of '
@@ -859,6 +895,8 @@ def teacher_times(torch, dev, dt):
               % (k, name, B, Td, T, W, A, out[which + '_ms'],
                  out[which + '_plain_ms'], out[which + '_bound_ms'],
                  out[which + '_bound_by'], nnz, touched))
+    print('K7 %s: the window rows of du and datt read and written every '
+          'step move %.3f GB' % (name, out['bwd_window_rmw_gb']))
     return out
 
 
@@ -1507,7 +1545,10 @@ def main():
              bound_ms=teacher_bf16['fwd_bound_ms'],
              bound_by=teacher_bf16['fwd_bound_by'], library_ms=None),
         dict(name='teacher_bwd', route='cuda',
-             source='cor_asv_ann_tpu_torch/csrc/teacher_scan.cu',
+             source='cor_asv_ann_tpu_torch/csrc/teacher_bwd.cu',
+             design='stage kernels: wvec of every step in one product, '
+                    'then per step the gate products, the attention '
+                    'backward and the carry',
              replaces='cor_asv_ann_tpu/ops/pallas_teacher.py:195',
              launches=launches['teacher_bwd'],
              max_abs_err=max(v for k, v in k7_errs.items()

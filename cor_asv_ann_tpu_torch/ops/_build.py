@@ -2,9 +2,10 @@
 
 Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
 ``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5,
-``csrc/teacher_scan.cu``: K6 and K7, ``csrc/decode_step.cu``: K3; the
-last three share ``csrc/scan_common.cuh``, K4 and K5 also use
-``csrc/scan_grid.cuh``, K2 and K3 ``csrc/step_tile.cuh`` over it) is
+``csrc/teacher_scan.cu``: K6, ``csrc/teacher_bwd.cu``: K7,
+``csrc/decode_step.cu``: K3; K2-K7 share ``csrc/scan_common.cuh``, K4
+and K5 also use ``csrc/scan_grid.cuh``, K2, K3 and K7
+``csrc/step_tile.cuh`` over it) is
 compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into
 one shared library with a plain C interface under ``build/kernels/`` at
@@ -28,7 +29,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build', 'kernels')
 SOURCES = ('lstm_step.cu', 'decode_loop.cu', 'lstm_scan.cu',
-           'teacher_scan.cu', 'decode_step.cu')
+           'teacher_scan.cu', 'teacher_bwd.cu', 'decode_step.cu')
 HEADERS = ('scan_common.cuh', 'scan_grid.cuh', 'step_tile.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -48,7 +49,8 @@ SIGNATURES = {
     'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 6 + [P]),
     'teacher_scan_supported': (I, [I] * 3),
     'teacher_fwd_launch': (I, [I] + [P] * 17 + [I] * 6 + [P]),
-    'teacher_bwd_launch': (I, [I] + [P] * 24 + [I] * 6 + [P]),
+    'teacher_bwd_supported': (I, [I] * 3),
+    'teacher_bwd_launch': (I, [I] + [P] * 2 + [I] * 6 + [P]),
     'decode_step_supported': (I, [I] * 4),
     'decode_step_rows_per_tile': (I, [I] * 4),
     'decode_step_launch': (I, [I] * 2 + [P] * 2 + [I] * 8 + [P]),

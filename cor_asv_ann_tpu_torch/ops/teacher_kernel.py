@@ -1,6 +1,6 @@
 """K6 and K7: the teacher-forced top decoder layer over all decoder steps
-and its reverse sweep as CUDA kernels (``csrc/teacher_scan.cu``), joined
-by ``TeacherTopFused``.
+and its reverse sweep as CUDA kernels (``csrc/teacher_scan.cu``,
+``csrc/teacher_bwd.cu``), joined by ``TeacherTopFused``.
 
 Replace the JAX package's Pallas kernels ``ops/pallas_teacher.py:
 _fwd_kernel`` (K6) and ``_b1_kernel`` (K7), their ``custom_vjp``
@@ -9,10 +9,13 @@ all Td steps of the top layer: additive attention energies against the
 precomputed ``u``, masked to the window ``|t0 - i| <= ww`` around the
 expected source position of the carried alignment, float32 softmax and
 context, the per-gate masked cell product and the Keras gates. The
-backward launch sweeps time the other way from the small residuals
-``hs, cs, aa, zs``, carries (dh, dc) in float32, accumulates the ``u``
-and ``attended`` gradients and emits the stacks from which every weight
-gradient is one contraction. As in the JAX package the hoisted input
+backward sweeps time the other way from the small residuals ``hs, cs,
+aa, zs``, carries (dh, dc) in float32, accumulates the ``u`` and
+``attended`` gradients and emits the stacks from which every weight
+gradient is one contraction; one C call issues its stage kernels
+(``BWD_STAGES``: the recomputed attention query of every step in one
+product, then per step the products, the attention backward and the
+carry) on the caller's stream. As in the JAX package the hoisted input
 projection ``zx`` and those contractions are plain matrix products
 outside the kernels.
 
@@ -23,7 +26,7 @@ K7 finds a step's window from the first non-zero entry of ``aa[t]``.
 
 The TPU kernels pad the batch to tiles, need ``W % 128 == 0``,
 ``T % 8 == 0`` and a VMEM budget. The CUDA kernels take any B, Td and T;
-their scratch in shared memory grows with the widths, which have to be
+K6's scratch in shared memory grows with the widths, which have to be
 multiples of 8 (16-byte loads), and they know no padding mask and no
 global attention (``ww >= 1``): `teacher_fused_supported`.
 
@@ -34,12 +37,17 @@ versions: step-by-step PyTorch transcriptions of the two Pallas bodies
 CUDA tensors they launch the kernels or raise.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
 from .lstm_scan_kernel import _DTYPE_CODES, _check, _gates, _on_cpu
 
 F32 = torch.float32
+# K7's stage kernels in the order of a sweep (``teacher_bwd_<stage>`` in
+# csrc/teacher_bwd.cu): wvec and prologue once, the other three each step
+BWD_STAGES = ('wvec', 'prologue', 'product', 'attention', 'carry')
 
 
 def _mm32(a, b):
@@ -257,8 +265,9 @@ def teacher_bwd(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW,
               (b_UW, (1, W)), (maskc, (4, B, A)))
     if any(tuple(t.shape) != s for t, s in shapes):
         raise ValueError('teacher_bwd: inconsistent shapes')
-    # the kernel's transposed products walk transposed copies row by row
-    KcT, RT, W_aT = (m.t().contiguous() for m in (Kc, R, W_a))
+    # the wvec stage reads W_a^T's rows; the other products read Kc, R and
+    # W_a as they are
+    W_aT = W_a.t().contiguous()
     dz = torch.empty((Td, B, W4), dtype=dt, device=dev)
     ds = torch.empty((Td, B, T), dtype=dt, device=dev)
     dctx = torch.empty((Td, B, A), dtype=dt, device=dev)
@@ -268,12 +277,18 @@ def teacher_bwd(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW,
     # read-modify-written by the kernel
     du = torch.zeros((B, T, W), dtype=F32, device=dev)
     datt = torch.zeros((B, T, A), dtype=F32, device=dev)
-    ins = (zs, g, hprev, cprev, cs, aa, u, att, KcT, RT, W_a, W_aT, v,
-           b_UW, maskc)
+    # scratch: wvec of every step, and one step's products per gate
+    wv = torch.empty((Td, B, W), dtype=dt, device=dev)
+    part = torch.empty((4, B, A + W), dtype=F32, device=dev)
+    ins = (zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, W_aT, v, b_UW,
+           maskc)
     outs = (dz, ds, dctx, dwvec, dh0, dc0, dva, du, datt)
+    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+    out_ptrs = (ctypes.c_void_p * (len(outs) + 2))(
+        *(t.data_ptr() for t in outs + (wv, part)))
     err = _build.library().teacher_bwd_launch(
-        _DTYPE_CODES[dt], *(t.data_ptr() for t in ins + outs),
-        Td, B, T, W, A, int(ww), _build.stream_of(zs))
+        _DTYPE_CODES[dt], in_ptrs, out_ptrs, Td, B, T, W, A, int(ww),
+        _build.stream_of(zs))
     _build.check(err, 'teacher backward kernel (Td=%d B=%d T=%d W=%d A=%d '
                  'ww=%d)' % (Td, B, T, W, A, ww))
     teacher_bwd.launches += 1

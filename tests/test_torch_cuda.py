@@ -355,30 +355,83 @@ def test_teacher_fwd_kernel(dev, dtype, with_masks, B, Td, T, W, A, ww):
     assert share >= (0.99 if dtype == torch.float32 else 0.9)
 
 
+def _teacher_bwd_case(dev, dtype, B, Td, T, W, A, ww, with_masks, seed=4):
+    """K7's arguments on the residuals the plain K6 saved, and its plain
+    result."""
+    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks, seed=seed)
+    zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
+    hs, cs, aa, zs = tk.teacher_fwd_reference(*ins, ww)
+    g = (torch.from_numpy(np.random.default_rng(seed + 1)
+                          .normal(0, 0.1, hs.shape).astype(np.float32))
+         .to(dtype).to(dev))
+    args = (zs, g, _shift(hs, h0, False), _shift(cs, c0, False), cs, aa, u,
+            att, Kc, R, W_a, v, b_UW, maskc, ww)
+    return args, tk.teacher_bwd_reference(*args)
+
+
+def _assert_teacher_bwd_close(got, want, dtype):
+    atol, rtol, _ = TEACHER_TOL[dtype]
+    for g_, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g_.float() / scale, w.float() / scale,
+                                   atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('with_masks', [False, True])
 @pytest.mark.parametrize('B,Td,T,W,A,ww', TEACHER_SHAPES)
 def test_teacher_bwd_kernel(dev, dtype, with_masks, B, Td, T, W, A, ww):
     """K7 against its plain version on the residuals the plain K6 saved."""
-    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks, seed=1)
-    zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
-    hs, cs, aa, zs = tk.teacher_fwd_reference(*ins, ww)
-    hprev, cprev = _shift(hs, h0, False), _shift(cs, c0, False)
-    g = (torch.from_numpy(np.random.default_rng(2).normal(0, 0.1, hs.shape)
-                          .astype(np.float32)).to(dtype).to(dev))
-    args = (zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW, maskc,
-            ww)
+    args, want = _teacher_bwd_case(dev, dtype, B, Td, T, W, A, ww, with_masks,
+                                   seed=1)
     before = tk.teacher_bwd.launches
     got = tk.teacher_bwd(*args)
     torch.cuda.synchronize()
     assert tk.teacher_bwd.launches == before + 1
-    want = tk.teacher_bwd_reference(*args)
-    atol, rtol, _ = TEACHER_TOL[dtype]
-    for k, (g_, w) in enumerate(zip(got, want)):
-        assert g_.dtype == (dtype if k < 4 else torch.float32)
-        scale = max(1.0, w.float().abs().max().item())
-        torch.testing.assert_close(g_.float() / scale, w.float() / scale,
-                                   atol=atol, rtol=rtol)
+    assert [g_.dtype for g_ in got] == [dtype] * 4 + [torch.float32] * 5
+    _assert_teacher_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,Td,T,W,A,with_masks', [
+    (300, 6, 20, 512, 512, True),      # ragged 64-row tiles
+    (64, 256, 256, 64, 128, False),    # the first check at T >= 192
+])
+def test_teacher_bwd_kernel_long_and_ragged(dev, dtype, B, Td, T, W, A,
+                                            with_masks):
+    """K7 at a batch that is no multiple of its row tile, and over a
+    sweep of 256 steps."""
+    args, want = _teacher_bwd_case(dev, dtype, B, Td, T, W, A, 5, with_masks)
+    got = tk.teacher_bwd(*args)
+    torch.cuda.synchronize()
+    _assert_teacher_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_teacher_bwd_kernel_repeats_its_bits(dev, dtype):
+    """No atomics in any sum: two launches on the same inputs agree bit
+    for bit."""
+    args, _ = _teacher_bwd_case(dev, dtype, 70, 9, 24, 512, 512, 5, True)
+    first = tk.teacher_bwd(*args)
+    second = tk.teacher_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_teacher_kernels_at_the_widest_width(dev):
+    """W = A = 1024, which K6's shared memory still takes: K6 and K7
+    against their plain versions."""
+    B, Td, T, W, A, ww = 5, 4, 12, 1024, 1024, 5
+    ins = _teacher_inputs(dev, torch.bfloat16, B, Td, T, W, A, True, seed=6)
+    top = {'cell': {'recurrent_kernel': ins[4]}}
+    assert tk.teacher_fused_supported(top, B, Td, T, W, A, False, ww)
+    got = tk.teacher_fwd(*ins, ww)
+    want = tk.teacher_fwd_reference(*ins, ww)
+    tk.teacher_fwd_agreement(got, want, *TEACHER_TOL[torch.bfloat16])
+    args, want = _teacher_bwd_case(dev, torch.bfloat16, B, Td, T, W, A, ww,
+                                   True, seed=6)
+    _assert_teacher_bwd_close(tk.teacher_bwd(*args), want, torch.bfloat16)
 
 
 @pytest.mark.parametrize('with_masks', [False, True])

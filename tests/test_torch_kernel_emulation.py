@@ -3,7 +3,7 @@ the fused decode step, run on the CPU.
 
 There is no GPU and no ``nvcc`` where these tests run, but the kernels
 K2-K7 (``csrc/lstm_step.cu``, ``csrc/decode_step.cu``,
-``csrc/lstm_scan.cu``, ``csrc/teacher_scan.cu`` over
+``csrc/lstm_scan.cu``, ``csrc/teacher_scan.cu``, ``csrc/teacher_bwd.cu`` over
 ``csrc/scan_common.cuh``, ``csrc/scan_grid.cuh``, ``csrc/step_tile.cuh``)
 use few CUDA constructs: blocks of threads, a block barrier, warp
 shuffles, dynamic shared memory, bf16 conversions, ``mma.sync``,
@@ -44,8 +44,9 @@ HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'cuda_emulation')
 # source -> (<<<...>>> launches, kernels declaring dynamic shared memory);
 # lstm_scan.cu launches its two kernels through cudaLaunchCooperativeKernel
-SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (2, 2),
-           'decode_step.cu': (5, 4), 'lstm_step.cu': (1, 1)}
+SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (1, 1),
+           'teacher_bwd.cu': (5, 4), 'decode_step.cu': (5, 4),
+           'lstm_step.cu': (1, 1)}
 CODE = {torch.float32: 0, torch.bfloat16: 1}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DTYPES = pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -225,9 +226,11 @@ def _teacher_inputs(dtype, B, Td, T, W, A, with_masks, seed):
 
 
 # (B, Td, T, W, A, ww): ragged row blocks, T != Td, windows clipped at both
-# ends of the line, widths that leave threads to split a product's reduction
+# ends of the line, widths that leave threads to split a product's reduction;
+# K7's row tiles ragged (B = 19) with widths that are multiples of 8 but not
+# of 16 (a bf16 mma tile's reduction)
 TEACHER_SHAPES = [(5, 7, 16, 16, 24, 5), (3, 6, 9, 40, 8, 2),
-                  (2, 4, 30, 8, 16, 1)]
+                  (2, 4, 30, 8, 16, 1), (19, 5, 12, 24, 40, 2)]
 
 
 @DTYPES
@@ -251,10 +254,13 @@ def test_emulated_teacher_kernels(lib, dtype, with_masks, B, Td, T, W, A, ww):
                                     R, W_a, v, b_UW, maskc, ww)
     got = [torch.full_like(w, float('nan')) for w in want[:7]] \
         + [torch.zeros_like(w) for w in want[7:]]
-    KcT, RT, W_aT = (m.t().contiguous() for m in (Kc, R, W_a))
-    kins = [zs, g, hprev, cprev, cs, aa, u, att, KcT, RT, W_a, W_aT, v, b_UW,
-            maskc]
-    err = lib.teacher_bwd_launch(CODE[dtype], *_ptrs(kins + got), Td, B, T,
+    scratch = [torch.full((Td, B, W), float('nan')).to(dtype),
+               torch.full((4, B, A + W), float('nan'))]
+    kins = [zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a,
+            W_a.t().contiguous(), v, b_UW, maskc]
+    in_ptrs = (ctypes.c_void_p * len(kins))(*_ptrs(kins))
+    out_ptrs = (ctypes.c_void_p * (len(got) + 2))(*_ptrs(got + scratch))
+    err = lib.teacher_bwd_launch(CODE[dtype], in_ptrs, out_ptrs, Td, B, T,
                                  W, A, ww, None)
     assert err == 0
     _assert_close(got, want, TOL[dtype],
@@ -435,8 +441,13 @@ def test_emulated_launchers_refuse_what_the_kernels_cannot_take(lib):
     assert lib.decode_step_rows_per_tile(1, 50, 512, 32) == 0
     assert lib.teacher_scan_supported(512, 512, 5) == 1
     assert lib.teacher_scan_supported(768, 768, 5) == 1
+    # K6's shared memory sets the limit (K7's stage kernels take any width)
+    assert lib.teacher_scan_supported(1024, 1024, 5) == 1
+    assert lib.teacher_bwd_supported(4096, 4096, 5) == 1
     # scratch beyond a block's shared memory, no window, ragged widths
-    assert lib.teacher_scan_supported(1024, 1024, 5) == 0
+    assert lib.teacher_scan_supported(1280, 1280, 5) == 0
+    assert lib.teacher_bwd_supported(512, 512, 0) == 0
+    assert lib.teacher_bwd_supported(12, 16, 5) == 0
     assert lib.teacher_scan_supported(512, 512, 0) == 0
     assert lib.teacher_scan_supported(12, 16, 5) == 0
     ins = _teacher_inputs(torch.float32, 2, 2, 4, 12, 16, False, seed=0)
