@@ -823,10 +823,11 @@ def kernel_device_ms(torch, fn, pattern):
 
 def teacher_times(torch, dev, dt):
     """K6 and K7 at the flagship training shape, with dropout masks:
-    kernel (the wrapper, which for K7 also transposes W_a, zeroes du/datt
-    and allocates its scratch), plain version, bound, and K7's split over
-    its stage kernels. No single PyTorch call computes either function,
-    so there is no library yardstick."""
+    kernel (the wrapper, which also lays out the weights that the stage
+    kernels read, allocates their scratch and, for K7, zeroes du/datt),
+    plain version, bound, and the split of each over its stage kernels.
+    No single PyTorch call computes either function, so there is no
+    library yardstick."""
     from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
     B, Td, T, W, A, ww = TEACHER_SHAPES[0]
     ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A, True, 11)
@@ -874,20 +875,23 @@ def teacher_times(torch, dev, dt):
     # the bound counts du and datt once; the sweep read-modify-writes the
     # visible rows of both every step
     out['bwd_window_rmw_gb'] = 8 * nnz * (W + A) / 1e9
-    # where K7's time goes: its stage kernels under the profiler
-    split = kernel_device_ms(torch, lambda: tk.teacher_bwd(*bwd_args),
-                             r'teacher_bwd_\w+')
-    stages = ['teacher_bwd_' + s for s in tk.BWD_STAGES]
-    if split:
-        check(sorted(split) == sorted(stages), 'K7 launched %s' % split)
-        out['bwd_stages_ms'] = {k[len('teacher_bwd_'):]: split[k][0]
-                                for k in stages}
-        print('K7 %s stage split (device ms, launches): %s' % (
-            name, ', '.join('%s %.3f (%d)' % (k[len('teacher_bwd_'):],
-                                               *split[k]) for k in stages)))
-    else:
-        print('K7 %s stage split: not measured (the profiler saw no device '
-              'time)' % name)
+    # where K6's and K7's time goes: their stage kernels under the profiler
+    for k, which, fn, names in (
+            ('K6', 'fwd', lambda: tk.teacher_fwd(*ins, ww), tk.FWD_STAGES),
+            ('K7', 'bwd', lambda: tk.teacher_bwd(*bwd_args), tk.BWD_STAGES)):
+        prefix = 'teacher_%s_' % which
+        split = kernel_device_ms(torch, fn, prefix + r'\w+')
+        stages = [prefix + s for s in names]
+        if not split:
+            print('%s %s stage split: not measured (the profiler saw no '
+                  'device time)' % (k, name))
+            continue
+        check(sorted(split) == sorted(stages), '%s launched %s' % (k, split))
+        out[which + '_stages_ms'] = {s[len(prefix):]: split[s][0]
+                                     for s in stages}
+        print('%s %s stage split (device ms, launches): %s' % (
+            k, name, ', '.join('%s %.3f (%d)' % (s[len(prefix):], *split[s])
+                               for s in stages)))
     for k, which in (('K6', 'fwd'), ('K7', 'bwd')):
         print('%s %s B=%d Td=%d T=%d W=%d A=%d: kernel %.3f ms, plain %.3f '
               'ms, bound %.4f ms (%s; %d visible positions, %d rows of '
@@ -1536,6 +1540,9 @@ def main():
              library_ms=scan_bf16['bwd_library_ms']),
         dict(name='teacher_fwd', route='cuda',
              source='cor_asv_ann_tpu_torch/csrc/teacher_scan.cu',
+             design='stage kernels: per step the products h.[W_a | R], '
+                    'the attention a block a row, and the gate products '
+                    'cg.Kc with the cell in their epilogue',
              replaces='cor_asv_ann_tpu/ops/pallas_teacher.py:131',
              launches=launches['teacher_fwd'],
              max_abs_err=max(v for k, v in k6_errs.items()

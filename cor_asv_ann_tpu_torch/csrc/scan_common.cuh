@@ -1,8 +1,5 @@
-// Shared by the whole-sequence scan kernels (lstm_scan.cu: K4/K5,
-// teacher_scan.cu: K6/K7) and the fused decode step (decode_step.cu: K3):
-// storage-type conversions with the Pallas kernels'
-// rounding points, 8-wide weight loads, and the block-wide product of BT batch
-// rows with a weight matrix streamed from global memory (L2).
+// Shared by the kernels K2-K7: storage-type conversions with the Pallas
+// kernels' rounding points, 8-wide loads and a warp sum.
 
 #pragma once
 
@@ -11,11 +8,7 @@
 
 namespace scan {
 
-constexpr int BT = 4;          // batch rows per block
-constexpr int NT = 512;        // threads per block
-constexpr int CG = 8;          // weight columns per thread in a product
-constexpr int TILE = NT * CG;  // columns per product tile
-static_assert(BT == 4, "block_product keeps the BT rows of one k in a float4");
+constexpr int CG = 8;  // values of one 16-byte (bf16) or two (float32) loads
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -54,67 +47,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[CG]) {
     const float2 f = __bfloat1622float2(h[i]);
     w[2 * i] = f.x;
     w[2 * i + 1] = f.y;
-  }
-}
-
-// out_s[r * out_ld + col] (+)= sum_k a_s[k][r] * M[k * ld + col] for r < BT,
-// col < ncols (a multiple of CG), with M row-major in global memory (row
-// stride ld, so a column slice of a wider matrix works) and a_s one float4
-// (the BT rows) per k in shared memory. Threads beyond the column groups take
-// ranges of k; part_s (NT*BT*CG floats) holds their partial sums, which are
-// added in the order of the ranges. `accumulate` adds to out_s instead of
-// overwriting it. Ends with the block synchronised; a_s and out_s are not
-// touched before the first barrier inside.
-template <typename T>
-__device__ __forceinline__ void block_product(const float4* __restrict__ a_s,
-                                              const T* __restrict__ M, int K, int ncols, int ld,
-                                              float* __restrict__ part_s,
-                                              float* __restrict__ out_s, int out_ld,
-                                              bool accumulate) {
-  const int tid = threadIdx.x;
-  for (int col0 = 0; col0 < ncols; col0 += TILE) {
-    const int tcols = min(TILE, ncols - col0);
-    const int ncg = tcols / CG;
-    const int ksplit = NT / ncg;
-    const int kper = (K + ksplit - 1) / ksplit;
-    const int cg = tid % ncg, ks = tid / ncg;
-    if (ks < ksplit) {
-      float acc[BT][CG];
-#pragma unroll
-      for (int r = 0; r < BT; ++r)
-#pragma unroll
-        for (int c = 0; c < CG; ++c) acc[r][c] = 0.0f;
-      const int k0 = ks * kper, k1 = min(K, k0 + kper);
-      const T* p = M + (size_t)k0 * ld + col0 + cg * CG;
-#pragma unroll 8
-      for (int k = k0; k < k1; ++k, p += ld) {
-        float w[CG];
-        load8(p, w);
-        const float4 a = a_s[k];
-#pragma unroll
-        for (int c = 0; c < CG; ++c) {
-          acc[0][c] = fmaf(a.x, w[c], acc[0][c]);
-          acc[1][c] = fmaf(a.y, w[c], acc[1][c]);
-          acc[2][c] = fmaf(a.z, w[c], acc[2][c]);
-          acc[3][c] = fmaf(a.w, w[c], acc[3][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        float4* dst = reinterpret_cast<float4*>(part_s + (size_t)(ks * BT + r) * tcols + cg * CG);
-        dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < BT * tcols; i += NT) {
-      const int r = i / tcols, c = i % tcols;
-      float s = 0.0f;
-      for (int q = 0; q < ksplit; ++q) s += part_s[(size_t)(q * BT + r) * tcols + c];
-      float* o = out_s + (size_t)r * out_ld + col0 + c;
-      *o = accumulate ? *o + s : s;
-    }
-    __syncthreads();
   }
 }
 

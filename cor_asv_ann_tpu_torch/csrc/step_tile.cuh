@@ -1,6 +1,7 @@
-// Device code of the per-step kernels (lstm_step.cu: K2, decode_step.cu: K3): a
-// block owns a tile of rows and, per product, a slice of output columns, and
-// streams both operands through shared memory by chunks of the reduction.
+// Device code of the per-step kernels (lstm_step.cu: K2, decode_step.cu: K3,
+// and the stage kernels of teacher_scan.cu: K6, teacher_bwd.cu: K7): a block
+// owns a tile of rows and, per product, a slice of output columns, and streams
+// both operands through shared memory by chunks of the reduction.
 //
 // - `pipeline`: NS buffers of a chunk each; the copies of chunk c + NS - 1 are
 //   issued (cp.async) before the product of chunk c runs, so NS - 1 chunks are
@@ -13,6 +14,8 @@
 //   operand keeps that layout in shared memory ([k][c]) and TileKN reads it so:
 //   bf16 B fragments of mma.sync by ldmatrix.trans, float32 4x4 register tiles
 //   of exact FMA with four consecutive columns a thread.
+// - `WarpTile`/`FmaTile`: block products of a compile-time shape;
+//   `tile_product` runs one over the pipeline with B as rows ([c][k]).
 // Sums run in a fixed order: two runs give the same bits.
 
 #pragma once
@@ -22,7 +25,6 @@
 namespace scan {
 namespace tile {
 
-// scan::NT and friends belong to the 4-row kernels (scan_common.cuh)
 using grid::ceil_div;
 using grid::cp_async16;
 using grid::cp_async_commit;
@@ -467,6 +469,52 @@ template <int M, int NC, bool BT> struct FmaTile {
       }
   }
 };
+
+// The block product of a compile-time tile with B as rows along the
+// reduction ([c][k]): bf16 on tensor cores, float32 on exact FMA
+template <typename T, int M, int NC> struct RowTile;
+template <int M, int NC> struct RowTile<__nv_bfloat16, M, NC> {
+  using type = WarpTile<M, NC, M / 32, false>;
+};
+template <int M, int NC> struct RowTile<float, M, NC> {
+  using type = FmaTile<M, NC, false>;
+};
+
+// row stride of a chunk buffer
+template <typename T> __host__ __device__ constexpr int chunk_ld() { return kc<T>() + pad<T>(); }
+
+// dynamic shared memory of tile_product: the NS chunk buffers of both
+// operands, which the product's float32 result reuses
+template <typename T, int M, int NC, int NS> size_t tile_product_smem() {
+  const size_t stages = (size_t)NS * (M + NC) * chunk_ld<T>() * sizeof(T);
+  const size_t out = (size_t)M * NC * sizeof(float);
+  return stages > out ? stages : out;
+}
+
+// out (M x NC float32, at the start of shared memory, row stride NC) =
+// A (rows a[r * lda + k], zero beyond nr rows) times B^T (rows b[c * ldb + k],
+// zero beyond nc rows) over a reduction of K, with NS chunk buffers. Ends
+// with the block synchronised.
+template <typename T, int M, int NC, int NS>
+__device__ __forceinline__ void tile_product(float4* smem, const T* __restrict__ a, size_t lda,
+                                             int nr, const T* __restrict__ b, size_t ldb, int nc,
+                                             int K) {
+  constexpr int KC = kc<T>(), ld = chunk_ld<T>();
+  T* abuf = reinterpret_cast<T*>(smem);
+  T* bbuf = abuf + (size_t)NS * M * ld;
+  typename RowTile<T, M, NC>::type acc(ld, ld);
+  pipeline<NS>(
+      ceil_div(K, KC),
+      [&](int c, int buf) {
+        copy_rows<T>(abuf + (size_t)buf * M * ld, ld, a, lda, M, nr, c * KC, KC, K, true);
+        copy_rows<T>(bbuf + (size_t)buf * NC * ld, ld, b, ldb, NC, nc, c * KC, KC, K, true);
+      },
+      [&](int c, int buf) {
+        acc.template chunk<KC>(abuf + (size_t)buf * M * ld, bbuf + (size_t)buf * NC * ld);
+      });
+  acc.store(reinterpret_cast<float*>(smem), NC);
+  __syncthreads();
+}
 
 }  // namespace tile
 }  // namespace scan

@@ -97,25 +97,8 @@ template <typename T> struct Bwd {
   int Td, B, Tn, W, A, ww;
 };
 
-// the block product of the product kernels: BR x NCOL on tensor cores (bf16)
-// or FMA (float32)
-template <typename T> struct Fast;
-template <> struct Fast<__nv_bfloat16> {
-  using type = WarpTile<BR, NCOL, BR / 32, false>;
-};
-template <> struct Fast<float> {
-  using type = FmaTile<BR, NCOL, false>;
-};
-
-template <typename T> __host__ __device__ constexpr int chunk_ld() { return kc<T>() + pad<T>(); }
-
-// dynamic shared memory of a product block: the chunk buffers, which the
-// product's float32 result reuses
-template <typename T> size_t product_smem() {
-  const size_t stages = (size_t)NS * (BR + NCOL) * chunk_ld<T>() * sizeof(T);
-  const size_t out = (size_t)BR * NCOL * sizeof(float);
-  return stages > out ? stages : out;
-}
+// dynamic shared memory of a product block
+template <typename T> size_t product_smem() { return tile_product_smem<T, BR, NCOL, NS>(); }
 
 // of a carry block: the chunk buffers, which the product's float32 result and
 // the partial sums of its split reduction reuse
@@ -128,30 +111,6 @@ template <typename T> size_t carry_smem() {
 // of the attention kernel: dctx, the window's a, da, ds, and its start and size
 size_t attention_smem(int A, int ww) {
   return ((size_t)A + 3 * (size_t)window_max(ww) + 2) * sizeof(float);
-}
-
-// out (BR x NCOL float32, at the start of shared memory, row stride NCOL) =
-// A (rows a[r * lda + k], zero beyond nr rows) times B^T (rows b[c * ldb + k],
-// zero beyond nc rows) over a reduction of K. Ends with the block synchronised.
-template <typename T>
-__device__ __forceinline__ void tile_product(float4* smem, const T* __restrict__ a, size_t lda,
-                                             int nr, const T* __restrict__ b, size_t ldb, int nc,
-                                             int K) {
-  constexpr int KC = kc<T>(), ld = chunk_ld<T>();
-  T* abuf = reinterpret_cast<T*>(smem);
-  T* bbuf = abuf + (size_t)NS * BR * ld;
-  typename Fast<T>::type acc(ld, ld);
-  pipeline<NS>(
-      ceil_div(K, KC),
-      [&](int c, int buf) {
-        copy_rows<T>(abuf + (size_t)buf * BR * ld, ld, a, lda, BR, nr, c * KC, KC, K, true);
-        copy_rows<T>(bbuf + (size_t)buf * NCOL * ld, ld, b, ldb, NCOL, nc, c * KC, KC, K, true);
-      },
-      [&](int c, int buf) {
-        acc.template chunk<KC>(abuf + (size_t)buf * BR * ld, bbuf + (size_t)buf * NCOL * ld);
-      });
-  acc.store(reinterpret_cast<float*>(smem), NCOL);
-  __syncthreads();
 }
 
 // what the cell backward of step t at (row, n) reads
@@ -203,7 +162,8 @@ __global__ void __launch_bounds__(NT, 2) teacher_bwd_wvec(const Bwd<T> a) {
   const int W = a.W, slices = ceil_div(W, NCOL), rows = a.Td * a.B;
   const int r0 = (blockIdx.x / slices) * BR, c0 = (blockIdx.x % slices) * NCOL;
   const int nr = min(BR, rows - r0), nc = min(NCOL, W - c0);
-  tile_product<T>(smem4, a.hprev + (size_t)r0 * W, W, nr, a.WaT + (size_t)c0 * W, W, nc, W);
+  tile_product<T, BR, NCOL, NS>(smem4, a.hprev + (size_t)r0 * W, W, nr, a.WaT + (size_t)c0 * W,
+                                W, nc, W);
   const float* out = reinterpret_cast<const float*>(smem4);
   for (int i = threadIdx.x; i < nr * nc; i += NT) {
     const int r = i / nc, c = i % nc;
@@ -232,8 +192,8 @@ __global__ void __launch_bounds__(NT, 2) teacher_bwd_product(const Bwd<T> a, int
   const int c0 = (ctx ? s : s - sa) * NCOL;
   const int nr = min(BR, B - b0), nc = min(NCOL, (ctx ? A : W) - c0);
   const size_t W4 = (size_t)4 * W;
-  tile_product<T>(smem4, a.dz + ((size_t)t * B + b0) * W4 + gate * W, W4, nr,
-                  (ctx ? a.Kc : a.R) + c0 * W4 + gate * W, W4, nc, W);
+  tile_product<T, BR, NCOL, NS>(smem4, a.dz + ((size_t)t * B + b0) * W4 + gate * W, W4, nr,
+                                (ctx ? a.Kc : a.R) + c0 * W4 + gate * W, W4, nc, W);
   const float* out = reinterpret_cast<const float*>(smem4);
   float* dst = a.part + ((size_t)gate * B + b0) * (A + W) + (ctx ? 0 : A) + c0;
   for (int i = threadIdx.x; i < nr * nc; i += NT) {

@@ -1,6 +1,6 @@
 // K6: the teacher-forced top decoder layer (local additive attention + LSTM
-// cell) over all Td decoder steps in one launch, for Hopper (sm_90a), float32
-// or bfloat16. Its reverse-time sweep (K7) is teacher_bwd.cu.
+// cell) over all Td decoder steps, for Hopper (sm_90a), float32 or bfloat16.
+// Its reverse-time sweep (K7) is teacher_bwd.cu.
 //
 // Replaces the JAX package's Pallas kernel ops/pallas_teacher.py: _fwd_kernel.
 // With dt the weight dtype, r() a float32 value rounded to dt, zx (Td, B, 4W)
@@ -9,201 +9,359 @@
 // (W), b_v a float32 scalar, bias (4W), maskc (4, B, A) per-gate dropout
 // multipliers and a the previous alignment, per step t = 0..Td-1:
 //
-//     wvec = r(h.W_a) + b_UW
+//     wvec = r(r(h.W_a) + b_UW)
 //     t0 = sum_i a_i*i + 1 (float32); position i is visible iff |t0 - i| <= ww
-//     s_i = r(sum_n tanh(wvec + u_i)_n * v_n) + b_v        (tanh and sums in dt)
+//     s_i = r(r(sum_n r(tanh(r(wvec + u_i)))_n * v_n) + b_v)
 //     a = r(softmax over the visible i, float32); aa[t] = a (dense row, 0 elsewhere)
-//     ctx = sum_i a_i * attended_i (float32)
-//     z = r(zx[t] + sum_g (r(r(ctx)*maskc_g)).Kc_g + h.R) + bias;   zs[t] = z
+//     ctx = r(sum_i a_i * attended_i);  cg_g = r(ctx * maskc_g)
+//     z = r(r(zx[t] + sum_g cg_g.Kc_g + h.R) + bias);   zs[t] = z
 //     i, f, o = 1/(1+exp(-z)), g = tanh(z), every intermediate in dt
 //     c = f*c + i*g,  h = o*tanh(c);  hs[t] = h, cs[t] = c
 //
 // The hoisted input projection stays outside, as in the JAX package. The
-// products h.W_a, ctx.Kc, h.R are computed here.
+// products h.W_a, cg.Kc, h.R are computed here.
 //
 // What bounds it on an H100: operations (2*(W^2 + 4AW + 4W^2) per row and
-// step), just above the bytes of the streamed stacks. The TPU kernel keeps a
-// batch tile's whole u and attended ((bt, T, W+A)) and all weights (4.5 MB in
-// bf16) resident in VMEM and computes the energies densely over T. A Hopper
-// block has 227 KB. What this design does about it:
-// - the window mask leaves at most 2*ww+1 visible positions per row and step,
-//   all others get exp(-1e30 - m) = 0 exactly in float32, so only the visible
-//   rows of u and attended are read (bit-identical to the dense form; without
-//   a padding mask a row is never all-masked for ww >= 1 because t0 lies in
-//   [1, T], so the Pallas body's missing zeroing of such rows is no case
-//   here; a row with no visible position would get a zero alignment);
-// - one block owns BT = 4 batch rows for the whole sweep, so h, c and the
-//   alignment window never leave shared memory and no block waits on another;
-//   the weights stream from L2 every step through block_product
-//   (scan_common.cuh).
-// Plain float32 FMA; tensor cores, TMA and a grid that shares one copy of the
-// weights across SMs are later work.
+// step: 0.16 ms in bf16 at B=256, Td=T=128, W=A=512; 2.3 ms in float32 on
+// the FMA pipe). The TPU kernel keeps a batch tile's u and attended and all
+// weights (4.5 MB in bf16) resident in VMEM; a Hopper block has 227 KB. Step t
+// depends on step t-1 through h and through the alignment that places the
+// window, so the attention stays in the recurrence and no product leaves it.
+// What this design does about it: the sweep runs as stage kernels on the
+// caller's stream, issued by one C call (no Python in the per-step loop), each
+// with a grid of its own so that a batch of 256 rows fills the 132 SMs, and
+// every product a tile product of step_tile.cuh that reads each weight once
+// per row tile:
+//   product    h.[W_a | R] per 64-row tile x 64-column slice of the 5W columns
+//              (B=256, W=512: 160 blocks): wvec in the weight dtype to a
+//              scratch (B, W), h.R as float32 to a scratch (B, 4W);
+//   attention  a block of 512 threads a row: t0 from the previous step's
+//              window (a scratch of 2*ww+1 alignment values with its start and
+//              size a row), the visible positions, their energies (a warp for
+//              each 256 columns of a position), the float32 softmax, the dense
+//              aa[t] row, ctx and the four masked cg_g to a scratch (4, B, A)
+//              in the weight dtype;
+//   gates      cg_g.Kc_g per 64-row tile x 16-unit slice (128 blocks): the
+//              block owns its units' four gate columns of Kc, each gate's
+//              warps or threads reading that gate's cg rows, and the Keras
+//              gates in the epilogue (K2's pattern, lstm_step.cu), which
+//              writes hs[t], cs[t], zs[t]; hs[t] is the next step's h.
+// Each step's three kernels are chains of dependent loads at low occupancy,
+// so the loads that wait on nothing within a kernel are issued first: the
+// gates stage's zx, h.R and previous c go to shared memory with the first
+// chunk of its product, the attention's context rows and masks to registers
+// before its energies.
+// The window mask leaves at most 2*ww+1 visible positions per row and step,
+// all others get exp(-1e30 - m) = 0 exactly in float32, so only the visible
+// rows of u and attended are read (bit-identical to the dense form; without a
+// padding mask a row is never all-masked for ww >= 1 because t0 lies in
+// [1, T]; a row with no visible position would get a zero alignment).
+// The products stream both operands through shared memory by cp.async with
+// NS - 1 chunks in flight: bf16 on tensor cores (mma.sync m16n8k16,
+// ldmatrix.x4 fragments, float32 accumulators), float32 as exact FMA register
+// tiles. Every sum runs in a fixed order, with no atomics: two launches give
+// the same bits.
 
-#include "scan_common.cuh"
+#include "step_tile.cuh"
 
 #include <math.h>
 
 namespace {
 
-using namespace scan;
+using scan::CG;
+using scan::from_f;
+using scan::load8;
+using scan::rnd;
+using scan::sig;
+using scan::to_f;
+using scan::warp_sum;
+using namespace scan::grid;
+using namespace scan::tile;
 
-constexpr int NW = NT / 32;  // warps per block
+constexpr int BR = 64;    // rows of a product tile
+constexpr int NCOL = 64;  // columns of a product tile
+constexpr int NS = 4;     // chunk buffers
+constexpr int GR = 64;    // rows of a gates tile
+constexpr int US = 16;    // units of a gates tile (4 * US gate columns)
+constexpr int JB = 8;     // window positions whose loads a thread issues together
+constexpr int NTA = 512;  // threads of an attention block
+constexpr int NWA = NTA / 32;
 
 __host__ __device__ inline int window_max(int ww) { return 2 * ww + 1; }
 
-// shared memory of the kernel in floats (the two ints per row included)
-size_t fwd_smem(int W, int A, int ww) {
-  return ((size_t)BT * (7 * W + 2 * A) + (size_t)NT * BT * CG + (size_t)BT * (2 * window_max(ww) + 2)) *
-         sizeof(float);
+template <typename T> struct Fwd {
+  const float* zx;
+  const T *u, *att, *Kc, *WR, *v, *bUW;
+  const float* b_v;
+  const T *bias, *maskc, *h0, *c0;
+  T *hs, *cs, *aa, *zs;
+  T* wv;       // scratch (B, W): this step's wvec
+  float* zr;   // scratch (B, 4W): this step's h.R
+  T* cg;       // scratch (4, B, A): this step's masked context per gate
+  float* aw;   // scratch (B, 2*ww+1): the window's alignment, then per row
+  int* win;    //   (B, 2) its first position and size
+  int Td, B, Tn, W, A, ww;
+};
+
+// dynamic shared memory of a product block
+template <typename T> size_t product_smem() { return tile_product_smem<T, BR, NCOL, NS>(); }
+
+// W columns of an energy item: a warp's 32 lanes x 8
+constexpr int ECOL = 32 * CG;
+
+// of an attention block: the window's energies, then its alignment, and the
+// energies' partial sums, ceil(W / ECOL) a position
+size_t attention_smem(int W, int ww) {
+  return (size_t)window_max(ww) * (1 + ceil_div(W, ECOL)) * sizeof(float);
 }
 
-// wv_s <- r(h.W_a) + b_UW from the product's float32 sums, in place
-template <typename T>
-__device__ __forceinline__ void finish_wvec(float* wv_s, const T* __restrict__ bUW, int W) {
-  for (int i = threadIdx.x; i < BT * W; i += NT)
-    wv_s[i] = rnd<T>(rnd<T>(wv_s[i]) + to_f<T>(bUW[i % W]));
+// the product of a gates block: 8 warps (bf16) as 2 row halves x 4 gates, or
+// 256 threads (float32) as 16 rows x 16 column quads, 4 quads a gate; each
+// reads its own gate's rows of cg
+template <typename T> struct GateTile;
+template <> struct GateTile<__nv_bfloat16> {
+  using type = WarpTile<GR, 4 * US, 2, true>;
+  static __device__ __forceinline__ int gate() { return (int)threadIdx.x / 64; }
+};
+template <> struct GateTile<float> {
+  using type = FmaTile<GR, 4 * US, true>;
+  static_assert(4 * US == 64, "a thread's four columns lie in one gate");
+  static __device__ __forceinline__ int gate() { return ((int)threadIdx.x % 16) / 4; }
+};
+
+// of a gates block: per chunk buffer the four gates' cg rows and the gate
+// columns of Kc (which the float32 product reuses), then the epilogue's zx
+// and h.R (float32) and previous c of its tile
+template <typename T> __host__ __device__ constexpr size_t gates_stages() {
+  return (size_t)NS * ((size_t)4 * GR * chunk_ld<T>() + (size_t)kc<T>() * (4 * US + pad<T>())) *
+         sizeof(T);
+}
+template <typename T> size_t gates_smem() {
+  return gates_stages<T>() + (size_t)GR * US * (8 * sizeof(float) + sizeof(T));
 }
 
-// sum_n tanh(wvec + u_row)_n * w_n over one row of u for one warp, with the
-// tanh argument and result rounded to dt; every lane gets the sum
+// step t's h.[W_a | R]: a block for each row tile and slice of NCOL of the
+// W_a columns or of the 4W R columns; wvec = r(r(h.W_a) + b_UW) to wv, h.R
+// in float32 to zr
 template <typename T>
-__device__ __forceinline__ float warp_energy(const float* wv_row, const T* __restrict__ u_row,
-                                             const T* __restrict__ v, int W, int lane) {
-  float acc = 0.0f;
-  for (int g = lane; g < W / CG; g += 32) {
-    float uu[CG], vv[CG];
-    load8(u_row + g * CG, uu);
-    load8(v + g * CG, vv);
-#pragma unroll
-    for (int c = 0; c < CG; ++c)
-      acc = fmaf(rnd<T>(tanhf(rnd<T>(wv_row[g * CG + c] + uu[c]))), vv[c], acc);
-  }
-  return warp_sum(acc);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-teacher_fwd_kernel(const float* __restrict__ zx, const T* __restrict__ u,
-                   const T* __restrict__ att, const T* __restrict__ Kc, const T* __restrict__ R,
-                   const T* __restrict__ Wa, const T* __restrict__ v, const T* __restrict__ bUW,
-                   const float* __restrict__ b_v, const T* __restrict__ bias,
-                   const T* __restrict__ maskc, const T* __restrict__ h0,
-                   const T* __restrict__ c0, T* __restrict__ hs, T* __restrict__ cs,
-                   T* __restrict__ aa, T* __restrict__ zs, int Td, int B, int Tn, int W, int A,
-                   int ww) {
+__global__ void __launch_bounds__(NT, 2) teacher_fwd_product(const Fwd<T> a, int t) {
   extern __shared__ float4 smem4[];
-  const int WM = window_max(ww);
-  float* h_s = reinterpret_cast<float*>(smem4);  // [W][BT]  h, one float4 per unit
-  float* c_s = h_s + (size_t)W * BT;              // [BT][W]
-  float* wv_s = c_s + (size_t)BT * W;             // [BT][W]  wvec
-  float* ctx_s = wv_s + (size_t)BT * W;           // [BT][A]  r(ctx)
-  float* cg_s = ctx_s + (size_t)BT * A;           // [A][BT]  one gate's masked ctx
-  float* z_s = cg_s + (size_t)A * BT;             // [BT][4W]
-  float* part_s = z_s + (size_t)BT * 4 * W;       // [NT*BT*CG]
-  float* aw_s = part_s + (size_t)NT * BT * CG;    // [BT][WM]  alignment window
-  float* sw_s = aw_s + BT * WM;                   // [BT][WM]  energies
-  int* lo_s = reinterpret_cast<int*>(sw_s + BT * WM);  // [BT]  first visible position
-  int* cnt_s = lo_s + BT;                              // [BT]  visible positions
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b0 = blockIdx.x * BT;
-  const int W4 = 4 * W;
-  const float b_vr = rnd<T>(*b_v);
-  for (int i = tid; i < BT * W; i += NT) {
-    const int r = i / W, n = i % W, row = b0 + r;
-    h_s[n * BT + r] = row < B ? to_f<T>(h0[(size_t)row * W + n]) : 0.0f;
-    c_s[i] = row < B ? to_f<T>(c0[(size_t)row * W + n]) : 0.0f;
+  const int W = a.W, B = a.B, sa = ceil_div(W, NCOL), S = sa + ceil_div(4 * W, NCOL);
+  const int s = blockIdx.x % S, b0 = (blockIdx.x / S) * BR;
+  const bool wa = s < sa;
+  const int c0 = (wa ? s : s - sa) * NCOL;
+  const int nr = min(BR, B - b0), nc = min(NCOL, (wa ? W : 4 * W) - c0);
+  const T* h = t == 0 ? a.h0 : a.hs + (size_t)(t - 1) * B * W;
+  tile_product<T, BR, NCOL, NS>(smem4, h + (size_t)b0 * W, W, nr,
+                                a.WR + (size_t)((wa ? 0 : W) + c0) * W, W, nc, W);
+  const float* __restrict__ out = reinterpret_cast<const float*>(smem4);
+  for (int i = threadIdx.x; i < nr * nc; i += NT) {
+    const int r = i / nc, c = i % nc, row = b0 + r;
+    if (wa)
+      a.wv[(size_t)row * W + c0 + c] =
+          from_f<T>(rnd<T>(out[r * NCOL + c]) + to_f<T>(a.bUW[c0 + c]));
+    else
+      a.zr[(size_t)row * 4 * W + c0 + c] = out[r * NCOL + c];
   }
-  if (tid < BT) lo_s[tid] = cnt_s[tid] = 0;
-  __syncthreads();
-  for (int t = 0; t < Td; ++t) {
-    block_product<T>(reinterpret_cast<const float4*>(h_s), Wa, W, W, W, part_s, wv_s, W, false);
-    finish_wvec<T>(wv_s, bUW, W);
-    if (tid < BT) {
-      // the window around t0, from the alignment of the step before (none at
-      // t = 0: t0 = 1); t0 - i is exact in float32, so this is the dense
-      // form's own test |t0 - i| <= ww on the candidates around floor(t0)
-      const int r = tid;
-      float t0 = 0.0f;
-      for (int j = 0; j < cnt_s[r]; ++j) t0 = fmaf(aw_s[r * WM + j], (float)(lo_s[r] + j), t0);
-      t0 += 1.0f;
-      const int c = (int)floorf(t0);
-      int lo = 0, cnt = 0;
-      if (b0 + r < B)
-        for (int i = max(0, c - ww - 1); i <= min(Tn - 1, c + ww + 1); ++i)
-          if (fabsf(t0 - (float)i) <= (float)ww && cnt < WM) {
-            if (cnt == 0) lo = i;
-            ++cnt;
-          }
-      lo_s[r] = lo;
-      cnt_s[r] = cnt;
-    }
-    __syncthreads();
-    for (int p = warp; p < BT * WM; p += NW) {
-      const int r = p / WM, j = p % WM;
-      if (j >= cnt_s[r]) continue;
-      const size_t at = (size_t)(b0 + r) * Tn + lo_s[r] + j;
-      const float s = warp_energy<T>(wv_s + (size_t)r * W, u + at * W, v, W, lane);
-      if (lane == 0) sw_s[p] = rnd<T>(rnd<T>(s) + b_vr);
-    }
-    __syncthreads();
-    if (tid < BT) {
-      const int r = tid, cnt = cnt_s[r];
-      float m = -INFINITY, sum = 0.0f;
-      for (int j = 0; j < cnt; ++j) m = fmaxf(m, sw_s[r * WM + j]);
-      for (int j = 0; j < cnt; ++j) {
-        const float p = expf(sw_s[r * WM + j] - m);
-        aw_s[r * WM + j] = p;
-        sum += p;
-      }
-      for (int j = 0; j < cnt; ++j) aw_s[r * WM + j] = rnd<T>(aw_s[r * WM + j] / sum);
-    }
-    __syncthreads();
-    for (int i = tid; i < BT * Tn; i += NT) {
-      const int r = i / Tn, p = i % Tn, row = b0 + r;
-      if (row >= B) continue;
-      const int j = p - lo_s[r];
-      const float a = (j >= 0 && j < cnt_s[r]) ? aw_s[r * WM + j] : 0.0f;
-      aa[((size_t)t * B + row) * Tn + p] = from_f<T>(a);
-    }
-    for (int i = tid; i < BT * A; i += NT) {
-      const int r = i / A, k = i % A;
-      const T* col = att + ((size_t)(b0 + r) * Tn + lo_s[r]) * A + k;
-      float acc = 0.0f;
-      for (int j = 0; j < cnt_s[r]; ++j) acc = fmaf(aw_s[r * WM + j], to_f<T>(col[(size_t)j * A]), acc);
-      ctx_s[i] = rnd<T>(acc);
-    }
-    __syncthreads();
-    for (int g = 0; g < 4; ++g) {
-      for (int i = tid; i < BT * A; i += NT) {
-        const int r = i / A, k = i % A, row = b0 + r;
-        cg_s[k * BT + r] =
-            row < B ? rnd<T>(ctx_s[i] * to_f<T>(maskc[((size_t)g * B + row) * A + k])) : 0.0f;
-      }
-      __syncthreads();
-      block_product<T>(reinterpret_cast<const float4*>(cg_s), Kc + g * W, A, W, W4, part_s,
-                       z_s + g * W, W4, false);
-    }
-    block_product<T>(reinterpret_cast<const float4*>(h_s), R, W, W4, W4, part_s, z_s, W4, true);
-    for (int i = tid; i < BT * W; i += NT) {
-      const int r = i / W, n = i % W, row = b0 + r;
-      if (row >= B) continue;
-      const size_t at = (size_t)t * B + row;
-      float z[4];
+}
+
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        z[g] = rnd<T>(rnd<T>(zx[at * W4 + g * W + n] + z_s[(size_t)r * W4 + g * W + n]) +
-                      to_f<T>(bias[g * W + n]));
-        zs[at * W4 + g * W + n] = from_f<T>(z[g]);
-      }
-      const float ig = sig<T>(z[0]), fg = sig<T>(z[1]), gg = rnd<T>(tanhf(z[2])), og = sig<T>(z[3]);
-      const float cn = rnd<T>(rnd<T>(fg * c_s[i]) + rnd<T>(ig * gg));
-      const float hn = rnd<T>(og * rnd<T>(tanhf(cn)));
-      c_s[i] = cn;
-      h_s[n * BT + r] = hn;
-      hs[at * W + n] = from_f<T>(hn);
-      cs[at * W + n] = from_f<T>(cn);
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// this lane's part of sum_n r(tanh(r(wvec + u_row)))_n * v_n over the 8
+// columns n = 8*g .. 8*g + 7
+template <typename T>
+__device__ __forceinline__ float lane_energy(const T* __restrict__ wv_row,
+                                             const T* __restrict__ u_row,
+                                             const T* __restrict__ v, int g) {
+  float wq[CG], uu[CG], vv[CG], acc = 0.0f;
+  load8(wv_row + g * CG, wq);
+  load8(u_row + g * CG, uu);
+  load8(v + g * CG, vv);
+#pragma unroll
+  for (int c = 0; c < CG; ++c) acc = fmaf(rnd<T>(tanhf(rnd<T>(wq[c] + uu[c]))), vv[c], acc);
+  return acc;
+}
+
+// step t's attention, a block a row. Every thread finds the window from the
+// previous step's (none at t = 0: t0 = 1); t0 - i is exact in float32, so
+// this is the dense form's own test |t0 - i| <= ww on the candidates around
+// floor(t0).
+template <typename T>
+__global__ void __launch_bounds__(NTA) teacher_fwd_attention(const Fwd<T> a, int t) {
+  extern __shared__ float4 smem4[];
+  const int A = a.A, B = a.B, Tn = a.Tn, ww = a.ww, WM = window_max(ww);
+  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = ceil_div(a.W, ECOL);              // energy items a position
+  float* s_s = reinterpret_cast<float*>(smem4);  // [WM] energies, then a
+  float* p_s = s_s + WM;                          // [WM][P] the energies' parts
+  float t0 = 1.0f;
+  if (t > 0) {
+    const int plo = a.win[2 * row], pcnt = a.win[2 * row + 1];
+    float acc = 0.0f;
+    for (int j = 0; j < pcnt; ++j) acc = fmaf(a.aw[(size_t)row * WM + j], (float)(plo + j), acc);
+    t0 = acc + 1.0f;
+  }
+  const int c = (int)floorf(t0);
+  int lo = 0, cnt = 0;
+  for (int i = max(0, c - ww - 1); i <= min(Tn - 1, c + ww + 1); ++i)
+    if (fabsf(t0 - (float)i) <= (float)ww && cnt < WM) {
+      if (cnt == 0) lo = i;
+      ++cnt;
     }
-    __syncthreads();
+  // the loads of a thread's first context column at JB positions, and its
+  // masks, issued before the energies
+  const T* att = a.att + ((size_t)row * Tn + lo) * A;
+  const int last = max(cnt - 1, 0);
+  float x[JB], mk[4];
+  auto load_att = [&](int k0, int j0) {
+#pragma unroll
+    for (int j = 0; j < JB; ++j)
+      x[j] = to_f<T>(att[(size_t)min(j0 + j, last) * A + min(k0 + tid, A - 1)]);
+  };
+  auto load_masks = [&](int k0) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      mk[g] = to_f<T>(a.maskc[((size_t)g * B + row) * A + min(k0 + tid, A - 1)]);
+  };
+  load_att(0, 0);
+  load_masks(0);
+  // the energies as items of ECOL columns of one position, a warp an item,
+  // each summed over the warp
+  const T* wv_row = a.wv + (size_t)row * a.W;
+  for (int item = warp; item < cnt * P; item += NWA) {
+    const int g = (item % P) * 32 + lane;
+    const T* u_row = a.u + ((size_t)row * Tn + lo + item / P) * a.W;
+    const float e = warp_sum(g < a.W / CG ? lane_energy<T>(wv_row, u_row, a.v, g) : 0.0f);
+    if (lane == 0) p_s[item] = e;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float b_vr = rnd<T>(*a.b_v);
+    float m = -INFINITY, sum = 0.0f;
+    for (int j = lane; j < cnt; j += 32) {
+      float s = 0.0f;
+      for (int q = 0; q < P; ++q) s += p_s[j * P + q];
+      s_s[j] = rnd<T>(rnd<T>(s) + b_vr);
+      m = fmaxf(m, s_s[j]);
+    }
+    m = warp_max(m);
+    for (int j = lane; j < cnt; j += 32) {
+      const float p = expf(s_s[j] - m);
+      s_s[j] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < cnt; j += 32) s_s[j] = rnd<T>(s_s[j] / sum);
+  }
+  __syncthreads();
+  const size_t at = (size_t)t * B + row;
+  for (int p = tid; p < Tn; p += NTA) {
+    const int j = p - lo;
+    a.aa[at * Tn + p] = from_f<T>(j >= 0 && j < cnt ? s_s[j] : 0.0f);
+  }
+  for (int j = tid; j < cnt; j += NTA) a.aw[(size_t)row * WM + j] = s_s[j];
+  if (tid == 0) {
+    a.win[2 * row] = lo;
+    a.win[2 * row + 1] = cnt;
+  }
+  for (int k0 = 0; k0 < A; k0 += NTA) {
+    if (k0 > 0) load_masks(k0);
+    float acc = 0.0f;
+    for (int j0 = 0; j0 < cnt; j0 += JB) {
+      if (k0 > 0 || j0 > 0) load_att(k0, j0);
+#pragma unroll
+      for (int j = 0; j < JB; ++j)
+        if (j0 + j < cnt) acc = fmaf(s_s[j0 + j], x[j], acc);
+    }
+    const int k = k0 + tid;
+    if (k >= A) continue;
+    const float ctx = rnd<T>(acc);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) a.cg[((size_t)g * B + row) * A + k] = from_f<T>(ctx * mk[g]);
+  }
+}
+
+// step t's gates: a block for each tile of GR rows and slice of US units,
+// sum_g cg_g.Kc_g over the four gate columns of its units, then
+// z = r(r(zx[t] + zc + zr) + bias), the Keras gates, c and h
+template <typename T>
+__global__ void __launch_bounds__(NT) teacher_fwd_gates(const Fwd<T> a, int t) {
+  extern __shared__ float4 smem4[];
+  constexpr int KC = kc<T>(), ld = chunk_ld<T>(), ldb = 4 * US + pad<T>();
+  const int W = a.W, A = a.A, B = a.B, slices = ceil_div(W, US);
+  const int r0 = (blockIdx.x / slices) * GR, u0 = (blockIdx.x % slices) * US;
+  const int nr = min(GR, B - r0), nu = min(US, W - u0);
+  T* abuf = reinterpret_cast<T*>(smem4);             // NS x 4 gates x [GR][ld]: cg rows
+  T* bbuf = abuf + (size_t)NS * 4 * GR * ld;          // NS x [KC][ldb]: Kc's gate columns
+  // the epilogue's inputs, copied into shared memory with the first chunk
+  // so that they arrive under the product: zx and h.R of the tile's rows
+  // and gate columns, and the previous c
+  const size_t W4 = (size_t)4 * W;
+  float* zx_s = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + gates_stages<T>());
+  float* zr_s = zx_s + GR * 4 * US;                   // [GR][4 * US] each
+  T* cp_s = reinterpret_cast<T*>(zr_s + GR * 4 * US);  // [GR][US]
+  const T* c_in = t == 0 ? a.c0 : a.cs + (size_t)(t - 1) * B * W;
+  constexpr int VF = 4, VT = 16 / sizeof(T);  // values of a 16-byte copy
+  for (int i = threadIdx.x; i < GR * 4 * US / VF; i += NT) {
+    const int r = i / (4 * US / VF), g = i / (US / VF) % 4, j = i % (US / VF) * VF;
+    const bool valid = r < nr && j < nu;
+    const size_t col = (size_t)(r0 + r) * W4 + (size_t)g * W + u0 + j;
+    const int at = r * 4 * US + g * US + j;
+    cp_async16(zx_s + at, valid ? a.zx + (size_t)t * B * W4 + col : a.zx, valid);
+    cp_async16(zr_s + at, valid ? a.zr + col : a.zr, valid);
+  }
+  for (int i = threadIdx.x; i < GR * US / VT; i += NT) {
+    const int r = i / (US / VT), j = i % (US / VT) * VT;
+    const bool valid = r < nr && j < nu;
+    cp_async16(cp_s + r * US + j, valid ? c_in + (size_t)(r0 + r) * W + u0 + j : c_in, valid);
+  }
+  const int j = threadIdx.x % US, n = u0 + min(j, nu - 1);
+  float bs[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bs[g] = to_f<T>(a.bias[g * W + n]);
+  typename GateTile<T>::type acc(ld, ldb);
+  const int gate = GateTile<T>::gate();
+  pipeline<NS>(
+      ceil_div(A, KC),
+      [&](int c, int buf) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          copy_rows<T>(abuf + (size_t)(buf * 4 + g) * GR * ld, ld,
+                       a.cg + ((size_t)g * B + r0) * A, A, GR, nr, c * KC, KC, A, true);
+        copy_gate_cols<T>(bbuf + (size_t)buf * KC * ldb, ldb, a.Kc, W, u0, US, nu, c * KC, KC, A,
+                          true);
+      },
+      [&](int c, int buf) {
+        acc.template chunk<KC>(abuf + (size_t)(buf * 4 + gate) * GR * ld,
+                               bbuf + (size_t)buf * KC * ldb);
+      });
+  acc.store(reinterpret_cast<float*>(smem4), 4 * US);
+  __syncthreads();
+  const float* __restrict__ zc = reinterpret_cast<const float*>(smem4);  // [GR][4 * US]
+  // the tile's elements, EB a thread, all of one unit j
+  constexpr int EB = GR * US / NT;
+  static_assert(GR * US % NT == 0 && NT % US == 0, "whole rows of elements a thread");
+#pragma unroll
+  for (int e = 0; e < EB; ++e) {
+    const int r = (int)(threadIdx.x + e * NT) / US;
+    if (r >= nr || j >= nu) continue;
+    const size_t at = (size_t)t * B + r0 + r;
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int i = r * 4 * US + g * US + j;
+      z[g] = rnd<T>(rnd<T>(zx_s[i] + zc[i] + zr_s[i]) + bs[g]);
+      a.zs[at * W4 + (size_t)g * W + n] = from_f<T>(z[g]);
+    }
+    const float ig = sig<T>(z[0]), fg = sig<T>(z[1]), gg = rnd<T>(tanhf(z[2])), og = sig<T>(z[3]);
+    const float cn = rnd<T>(rnd<T>(fg * to_f<T>(cp_s[r * US + j])) + rnd<T>(ig * gg));
+    const float hn = rnd<T>(og * rnd<T>(tanhf(cn)));
+    a.hs[at * W + n] = from_f<T>(hn);
+    a.cs[at * W + n] = from_f<T>(cn);
   }
 }
 
@@ -217,22 +375,50 @@ int max_smem() {
 
 bool shapes_ok(int Td, int B, int Tn, int W, int A, int ww) {
   return Td >= 1 && B >= 1 && Tn >= 1 && ww >= 1 && W >= CG && W % CG == 0 && A >= CG &&
-         A % CG == 0;
+         A % CG == 0 && attention_smem(W, ww) <= (size_t)max_smem() &&
+         product_smem<float>() <= (size_t)max_smem() &&
+         product_smem<__nv_bfloat16>() <= (size_t)max_smem() &&
+         gates_smem<float>() <= (size_t)max_smem() &&
+         gates_smem<__nv_bfloat16>() <= (size_t)max_smem();
+}
+
+template <class K> cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T> cudaError_t launch(const Fwd<T>& a, cudaStream_t s) {
+  const size_t psmem = product_smem<T>(), gsmem = gates_smem<T>();
+  const size_t asmem = attention_smem(a.W, a.ww);
+  cudaError_t err;
+  if ((err = allow_smem(teacher_fwd_product<T>, psmem)) != cudaSuccess ||
+      (err = allow_smem(teacher_fwd_attention<T>, asmem)) != cudaSuccess ||
+      (err = allow_smem(teacher_fwd_gates<T>, gsmem)) != cudaSuccess)
+    return err;
+  const int product_blocks =
+      ceil_div(a.B, BR) * (ceil_div(a.W, NCOL) + ceil_div(4 * a.W, NCOL));
+  const int gates_blocks = ceil_div(a.B, GR) * ceil_div(a.W, US);
+  for (int t = 0; t < a.Td; ++t) {
+    teacher_fwd_product<T><<<product_blocks, NT, psmem, s>>>(a, t);
+    teacher_fwd_attention<T><<<a.B, NTA, asmem, s>>>(a, t);
+    teacher_fwd_gates<T><<<gates_blocks, NT, gsmem, s>>>(a, t);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* const* p, int Td, int B, int Tn, int W, int A, int ww,
-                       cudaStream_t s) {
-  const size_t smem = fwd_smem(W, A, ww);
-  cudaError_t err = cudaFuncSetAttribute(teacher_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  teacher_fwd_kernel<T><<<(B + BT - 1) / BT, NT, smem, s>>>(
-      (const float*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3], (const T*)p[4],
-      (const T*)p[5], (const T*)p[6], (const T*)p[7], (const float*)p[8], (const T*)p[9],
-      (const T*)p[10], (const T*)p[11], (const T*)p[12], (T*)p[13], (T*)p[14], (T*)p[15],
-      (T*)p[16], Td, B, Tn, W, A, ww);
-  return cudaGetLastError();
+cudaError_t launch_dtype(const void* const* in, void* const* out, int Td, int B, int Tn, int W,
+                         int A, int ww, cudaStream_t s) {
+  float* aw = (float*)out[7];
+  const Fwd<T> a{(const float*)in[0], (const T*)in[1],  (const T*)in[2],  (const T*)in[3],
+                 (const T*)in[4],     (const T*)in[5],  (const T*)in[6],  (const float*)in[7],
+                 (const T*)in[8],     (const T*)in[9],  (const T*)in[10], (const T*)in[11],
+                 (T*)out[0],          (T*)out[1],       (T*)out[2],       (T*)out[3],
+                 (T*)out[4],          (float*)out[5],   (T*)out[6],       aw,
+                 (int*)(aw + (size_t)B * window_max(ww)),
+                 Td,                  B,                Tn,               W,
+                 A,                   ww};
+  return launch<T>(a, s);
 }
 
 }  // namespace
@@ -240,26 +426,23 @@ cudaError_t launch_fwd(const void* const* p, int Td, int B, int Tn, int W, int A
 extern "C" int teacher_bwd_supported(int W, int A, int ww);  // teacher_bwd.cu
 
 // 1 if K6 and K7 take these widths and this window on the current device
-// (multiples of 8, ww >= 1, K6's scratch within a block's shared memory, which
-// sets the upper limit), else 0
+// (multiples of 8, ww >= 1, their blocks' scratch within a block's shared
+// memory), else 0
 extern "C" int teacher_scan_supported(int W, int A, int ww) {
-  if (!shapes_ok(1, 1, 1, W, A, ww)) return 0;
-  return fwd_smem(W, A, ww) <= (size_t)max_smem() && teacher_bwd_supported(W, A, ww);
+  return shapes_ok(1, 1, 1, W, A, ww) && teacher_bwd_supported(W, A, ww);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the CUDA error of the launch.
-// K6. Inputs: zx (float32), u, att, Kc, R, Wa, v, bUW, b_v (float32), bias,
-// maskc, h0, c0; outputs: hs, cs, aa, zs.
-extern "C" int teacher_fwd_launch(int dtype, const void* zx, const void* u, const void* att,
-                                  const void* Kc, const void* R, const void* Wa, const void* v,
-                                  const void* bUW, const void* b_v, const void* bias,
-                                  const void* maskc, const void* h0, const void* c0, void* hs,
-                                  void* cs, void* aa, void* zs, int Td, int B, int Tn, int W,
-                                  int A, int ww, void* stream) {
+// K6. dtype: 0 = float32, 1 = bfloat16. `in`: zx (float32), u, att, Kc
+// (A, 4W), [W_a | R]^T (5W, W), v, b_UW, b_v (float32), bias, maskc, h0, c0;
+// `out`: hs, cs, aa, zs, then the scratch: wvec (B, W) in dt, h.R (B, 4W)
+// float32, cg (4, B, A) in dt, and the window (B * (2*ww + 1) float32 then
+// B * 2 int32). Issues 3*Td launches on `stream`; returns the first CUDA
+// error.
+extern "C" int teacher_fwd_launch(int dtype, const void* const* in, void* const* out, int Td,
+                                  int B, int Tn, int W, int A, int ww, void* stream) {
   if (!shapes_ok(Td, B, Tn, W, A, ww)) return (int)cudaErrorInvalidValue;
-  const void* p[17] = {zx, u, att, Kc, R, Wa, v, bUW, b_v, bias, maskc, h0, c0, hs, cs, aa, zs};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_fwd<float>(p, Td, B, Tn, W, A, ww, s);
-  if (dtype == 1) return (int)launch_fwd<__nv_bfloat16>(p, Td, B, Tn, W, A, ww, s);
+  if (dtype == 0) return (int)launch_dtype<float>(in, out, Td, B, Tn, W, A, ww, s);
+  if (dtype == 1) return (int)launch_dtype<__nv_bfloat16>(in, out, Td, B, Tn, W, A, ww, s);
   return (int)cudaErrorInvalidValue;
 }

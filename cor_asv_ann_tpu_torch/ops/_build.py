@@ -4,7 +4,7 @@ Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
 ``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5,
 ``csrc/teacher_scan.cu``: K6, ``csrc/teacher_bwd.cu``: K7,
 ``csrc/decode_step.cu``: K3; K2-K7 share ``csrc/scan_common.cuh``, K4
-and K5 also use ``csrc/scan_grid.cuh``, K2, K3 and K7
+and K5 also use ``csrc/scan_grid.cuh``, K2, K3, K6 and K7
 ``csrc/step_tile.cuh`` over it) is
 compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into
@@ -48,7 +48,7 @@ SIGNATURES = {
     'lstm_scan_fwd_launch': (I, [I] + [P] * 9 + [I] * 6 + [P]),
     'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 6 + [P]),
     'teacher_scan_supported': (I, [I] * 3),
-    'teacher_fwd_launch': (I, [I] + [P] * 17 + [I] * 6 + [P]),
+    'teacher_fwd_launch': (I, [I] + [P] * 2 + [I] * 6 + [P]),
     'teacher_bwd_supported': (I, [I] * 3),
     'teacher_bwd_launch': (I, [I] + [P] * 2 + [I] * 6 + [P]),
     'decode_step_supported': (I, [I] * 4),

@@ -4,20 +4,22 @@ and its reverse sweep as CUDA kernels (``csrc/teacher_scan.cu``,
 
 Replace the JAX package's Pallas kernels ``ops/pallas_teacher.py:
 _fwd_kernel`` (K6) and ``_b1_kernel`` (K7), their ``custom_vjp``
-(``teacher_top_fused``) and ``teacher_fused_supported``. One launch runs
-all Td steps of the top layer: additive attention energies against the
-precomputed ``u``, masked to the window ``|t0 - i| <= ww`` around the
-expected source position of the carried alignment, float32 softmax and
-context, the per-gate masked cell product and the Keras gates. The
-backward sweeps time the other way from the small residuals ``hs, cs,
-aa, zs``, carries (dh, dc) in float32, accumulates the ``u`` and
-``attended`` gradients and emits the stacks from which every weight
-gradient is one contraction; one C call issues its stage kernels
-(``BWD_STAGES``: the recomputed attention query of every step in one
-product, then per step the products, the attention backward and the
-carry) on the caller's stream. As in the JAX package the hoisted input
-projection ``zx`` and those contractions are plain matrix products
-outside the kernels.
+(``teacher_top_fused``) and ``teacher_fused_supported``. The forward
+runs all Td steps of the top layer: additive attention energies against
+the precomputed ``u``, masked to the window ``|t0 - i| <= ww`` around
+the expected source position of the carried alignment, float32 softmax
+and context, the per-gate masked cell product and the Keras gates; one
+C call issues its stage kernels (``FWD_STAGES``: per step the products
+h.[W_a | R], the attention a block a row, the gate products with the
+cell in their epilogue) on the caller's stream. The backward sweeps
+time the other way from the small residuals ``hs, cs, aa, zs``, carries
+(dh, dc) in float32, accumulates the ``u`` and ``attended`` gradients
+and emits the stacks from which every weight gradient is one
+contraction; one C call issues its stage kernels (``BWD_STAGES``: the
+recomputed attention query of every step in one product, then per step
+the products, the attention backward and the carry). As in the JAX
+package the hoisted input projection ``zx`` and those contractions are
+plain matrix products outside the kernels.
 
 The residual ``aa`` is the dense alignment row per step, as in the JAX
 package; the CUDA kernels read and write only its window (at most
@@ -25,9 +27,10 @@ package; the CUDA kernels read and write only its window (at most
 K7 finds a step's window from the first non-zero entry of ``aa[t]``.
 
 The TPU kernels pad the batch to tiles, need ``W % 128 == 0``,
-``T % 8 == 0`` and a VMEM budget. The CUDA kernels take any B, Td and T;
-K6's scratch in shared memory grows with the widths, which have to be
-multiples of 8 (16-byte loads), and they know no padding mask and no
+``T % 8 == 0`` and a VMEM budget. The CUDA kernels take any B, Td and T
+and widths that are multiples of 8 (16-byte loads; a block keeps at most
+a few floats a column of one row in shared memory, so only widths in the
+tens of thousands are refused), and they know no padding mask and no
 global attention (``ww >= 1``): `teacher_fused_supported`.
 
 ``teacher_fwd_reference`` and ``teacher_bwd_reference`` are the plain
@@ -45,6 +48,9 @@ from . import _build
 from .lstm_scan_kernel import _DTYPE_CODES, _check, _gates, _on_cpu
 
 F32 = torch.float32
+# K6's stage kernels in the order of a step (``teacher_fwd_<stage>`` in
+# csrc/teacher_scan.cu), each once a step
+FWD_STAGES = ('product', 'attention', 'gates')
 # K7's stage kernels in the order of a sweep (``teacher_bwd_<stage>`` in
 # csrc/teacher_bwd.cu): wvec and prologue once, the other three each step
 BWD_STAGES = ('wvec', 'prologue', 'product', 'attention', 'carry')
@@ -227,18 +233,30 @@ def teacher_fwd(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0,
               (c0, (B, W)))
     if any(tuple(t.shape) != s for t, s in shapes):
         raise ValueError('teacher_fwd: inconsistent shapes')
+    # the product stage reads the rows of [W_a | R]^T
+    WR_t = torch.cat([W_a, R], dim=1).t().contiguous()
     hs = torch.empty((Td, B, W), dtype=dt, device=dev)
     cs = torch.empty((Td, B, W), dtype=dt, device=dev)
     aa = torch.empty((Td, B, T), dtype=dt, device=dev)
     zs = torch.empty((Td, B, W4), dtype=dt, device=dev)
-    ins = (zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0)
+    # scratch: one step's wvec, h.R and masked contexts, and each row's
+    # window (its alignment values, then its start and size as int32)
+    wv = torch.empty((B, W), dtype=dt, device=dev)
+    zr = torch.empty((B, W4), dtype=F32, device=dev)
+    cg = torch.empty((4, B, A), dtype=dt, device=dev)
+    win = torch.empty((B * (2 * int(ww) + 3),), dtype=F32, device=dev)
+    ins = (zx, u, att, Kc, WR_t, v, b_UW, b_v, bias, maskc, h0, c0)
+    outs = (hs, cs, aa, zs)
+    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+    out_ptrs = (ctypes.c_void_p * (len(outs) + 4))(
+        *(t.data_ptr() for t in outs + (wv, zr, cg, win)))
     err = _build.library().teacher_fwd_launch(
-        _DTYPE_CODES[dt], *(t.data_ptr() for t in ins + (hs, cs, aa, zs)),
-        Td, B, T, W, A, int(ww), _build.stream_of(zx))
+        _DTYPE_CODES[dt], in_ptrs, out_ptrs, Td, B, T, W, A, int(ww),
+        _build.stream_of(zx))
     _build.check(err, 'teacher forward kernel (Td=%d B=%d T=%d W=%d A=%d '
                  'ww=%d)' % (Td, B, T, W, A, ww))
     teacher_fwd.launches += 1
-    return hs, cs, aa, zs
+    return outs
 
 
 teacher_fwd.launches = 0
@@ -424,10 +442,10 @@ def teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww):
 def teacher_fused_supported(top, B, Td, T, W, A, has_enc_mask, ww=5):
     """Whether `teacher_top_fused` launches the CUDA kernels for this
     top layer: float32 or bfloat16 weights on a CUDA device, no padding
-    mask, a local window (ww >= 1), widths that are multiples of 8 and
-    whose scratch fits a block's shared memory. Any B, Td and T; the
-    residual and gradient stacks live in device memory. (CPU tensors run
-    the plain versions, which take any shape.)"""
+    mask, a local window (ww >= 1), widths that are multiples of 8. Any
+    B, Td and T; the residual and gradient stacks and the sweeps' scratch
+    live in device memory. (CPU tensors run the plain versions, which
+    take any shape.)"""
     rk = top['cell']['recurrent_kernel']
     if rk.device.type != 'cuda' or rk.dtype not in _DTYPE_CODES:
         return False

@@ -355,6 +355,35 @@ def test_teacher_fwd_kernel(dev, dtype, with_masks, B, Td, T, W, A, ww):
     assert share >= (0.99 if dtype == torch.float32 else 0.9)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,Td,T,W,A,with_masks', [
+    (300, 6, 20, 512, 512, True),      # ragged 64-row tiles
+    (64, 256, 256, 64, 128, False),    # a sweep at T >= 192
+])
+def test_teacher_fwd_kernel_long_and_ragged(dev, dtype, B, Td, T, W, A,
+                                            with_masks):
+    """K6 at a batch that is no multiple of its row tiles, and over a
+    sweep of 256 steps."""
+    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks, seed=4)
+    got = tk.teacher_fwd(*ins, 5)
+    torch.cuda.synchronize()
+    want = tk.teacher_fwd_reference(*ins, 5)
+    _, share = tk.teacher_fwd_agreement(got, want, *TEACHER_TOL[dtype])
+    assert share >= (0.99 if dtype == torch.float32 else 0.9)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_teacher_fwd_kernel_repeats_its_bits(dev, dtype):
+    """No atomics in any sum: two launches on the same inputs agree bit
+    for bit."""
+    ins = _teacher_inputs(dev, dtype, 70, 9, 24, 512, 512, True, seed=4)
+    first = tk.teacher_fwd(*ins, 5)
+    second = tk.teacher_fwd(*ins, 5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _teacher_bwd_case(dev, dtype, B, Td, T, W, A, ww, with_masks, seed=4):
     """K7's arguments on the residuals the plain K6 saved, and its plain
     result."""
@@ -420,8 +449,8 @@ def test_teacher_bwd_kernel_repeats_its_bits(dev, dtype):
 
 
 def test_teacher_kernels_at_the_widest_width(dev):
-    """W = A = 1024, which K6's shared memory still takes: K6 and K7
-    against their plain versions."""
+    """W = A = 1024, the widest width that K6 took before its stage
+    kernels: K6 and K7 against their plain versions."""
     B, Td, T, W, A, ww = 5, 4, 12, 1024, 1024, 5
     ins = _teacher_inputs(dev, torch.bfloat16, B, Td, T, W, A, True, seed=6)
     top = {'cell': {'recurrent_kernel': ins[4]}}
@@ -503,7 +532,8 @@ def test_teacher_kernel_refuses_what_it_cannot_take(dev):
     assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, True, 2)
     assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, False, 0)
     assert not tk.teacher_fused_supported(top, 3, 4, 9, 12, 24, False, 2)
-    assert not tk.teacher_fused_supported(top, 3, 4, 9, 2048, 2048, False)
+    # no width is kept in shared memory
+    assert tk.teacher_fused_supported(top, 3, 4, 9, 2048, 2048, False)
     # a width that is no multiple of 8: the launcher reports it
     ins12 = _teacher_inputs(dev, torch.float32, 3, 4, 9, 12, 24, False)
     with pytest.raises(RuntimeError):

@@ -44,7 +44,7 @@ HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'cuda_emulation')
 # source -> (<<<...>>> launches, kernels declaring dynamic shared memory);
 # lstm_scan.cu launches its two kernels through cudaLaunchCooperativeKernel
-SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (1, 1),
+SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (3, 3),
            'teacher_bwd.cu': (5, 4), 'decode_step.cu': (5, 4),
            'lstm_step.cu': (1, 1)}
 CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -225,12 +225,31 @@ def _teacher_inputs(dtype, B, Td, T, W, A, with_masks, seed):
     return [zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0]
 
 
+def _launch_teacher_fwd(lib, code, ins, outs, Td, B, T, W, A, ww):
+    """K6's launcher on `ins` in `teacher_fwd`'s order, with [W_a | R]^T
+    in place of R and W_a and its scratch poisoned with NaN."""
+    zx, u, att, Kc, R, W_a, *rest = ins
+    kins = [zx, u, att, Kc, torch.cat([W_a, R], dim=1).t().contiguous(),
+            *rest]
+    dt = R.dtype
+    scratch = [torch.full((B, W), float('nan')).to(dt),
+               torch.full((B, 4 * W), float('nan')),
+               torch.full((4, B, A), float('nan')).to(dt),
+               torch.full((B * (2 * ww + 3),), float('nan'))]
+    in_ptrs = (ctypes.c_void_p * len(kins))(*_ptrs(kins))
+    out_ptrs = (ctypes.c_void_p * (len(outs) + 4))(*_ptrs(outs + scratch))
+    return lib.teacher_fwd_launch(code, in_ptrs, out_ptrs, Td, B, T, W, A, ww,
+                                  None)
+
+
 # (B, Td, T, W, A, ww): ragged row blocks, T != Td, windows clipped at both
 # ends of the line, widths that leave threads to split a product's reduction;
 # K7's row tiles ragged (B = 19) with widths that are multiples of 8 but not
-# of 16 (a bf16 mma tile's reduction)
+# of 16 (a bf16 mma tile's reduction); A = 520, more context columns than
+# K6's attention block covers in one pass and K7's in one block
 TEACHER_SHAPES = [(5, 7, 16, 16, 24, 5), (3, 6, 9, 40, 8, 2),
-                  (2, 4, 30, 8, 16, 1), (19, 5, 12, 24, 40, 2)]
+                  (2, 4, 30, 8, 16, 1), (19, 5, 12, 24, 40, 2),
+                  (2, 3, 6, 8, 520, 1)]
 
 
 @DTYPES
@@ -242,8 +261,7 @@ def test_emulated_teacher_kernels(lib, dtype, with_masks, B, Td, T, W, A, ww):
     zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
     want = tk.teacher_fwd_reference(*ins, ww)
     got = [torch.full_like(w, float('nan')) for w in want]
-    err = lib.teacher_fwd_launch(CODE[dtype], *_ptrs(ins + got), Td, B, T, W,
-                                 A, ww, None)
+    err = _launch_teacher_fwd(lib, CODE[dtype], ins, got, Td, B, T, W, A, ww)
     assert err == 0
     _assert_close(got, want, TOL[dtype], ('hs', 'cs', 'aa', 'zs'))
     hs, cs, aa, zs = want
@@ -441,18 +459,18 @@ def test_emulated_launchers_refuse_what_the_kernels_cannot_take(lib):
     assert lib.decode_step_rows_per_tile(1, 50, 512, 32) == 0
     assert lib.teacher_scan_supported(512, 512, 5) == 1
     assert lib.teacher_scan_supported(768, 768, 5) == 1
-    # K6's shared memory sets the limit (K7's stage kernels take any width)
     assert lib.teacher_scan_supported(1024, 1024, 5) == 1
     assert lib.teacher_bwd_supported(4096, 4096, 5) == 1
-    # scratch beyond a block's shared memory, no window, ragged widths
-    assert lib.teacher_scan_supported(1280, 1280, 5) == 0
+    # K6's stage kernels keep no width in shared memory (a K6 that kept
+    # its rows' state there refused this width)
+    assert lib.teacher_scan_supported(1280, 1280, 5) == 1
+    # no window, ragged widths
     assert lib.teacher_bwd_supported(512, 512, 0) == 0
     assert lib.teacher_bwd_supported(12, 16, 5) == 0
     assert lib.teacher_scan_supported(512, 512, 0) == 0
     assert lib.teacher_scan_supported(12, 16, 5) == 0
-    ins = _teacher_inputs(torch.float32, 2, 2, 4, 12, 16, False, seed=0)
+    ins = _teacher_inputs(torch.float32, 2, 2, 4, 16, 16, False, seed=0)
     outs = [torch.zeros(1) for _ in range(4)]
-    assert lib.teacher_fwd_launch(0, *_ptrs(ins + outs), 2, 2, 4, 12, 16, 2,
-                                  None) != 0
-    assert lib.teacher_fwd_launch(7, *_ptrs(ins + outs), 2, 2, 4, 16, 16, 2,
-                                  None) != 0
+    assert _launch_teacher_fwd(lib, 0, ins, outs, 2, 2, 4, 12, 16, 2) != 0
+    assert _launch_teacher_fwd(lib, 7, ins, outs, 2, 2, 4, 16, 16, 2) != 0
+    assert _launch_teacher_fwd(lib, 0, ins, outs, 2, 2, 4, 16, 16, 0) != 0

@@ -10,14 +10,14 @@ root and building its own kernels there. Each process times
 ``teacher_bwd`` (K7) and ``teacher_fwd`` (K6) at B=256, Td=T=128,
 W=A=512 with dropout masks in bfloat16 and float32 (CUDA events, mean of
 5 calls after a warm-up; the inputs of ``chip_smoke.py:teacher_times``),
-and the device time of each kernel that a K7 call launches, by name,
-from ``torch.profiler`` (the stage kernels ``teacher_bwd_<stage>`` where
-the checkout has them). Then six ``train_step``s of a randomly
-initialised d2/w512 model at B=256, T=Td=128, bfloat16, without masked
-padding (the best step after the first, host clock around a synchronised
-step; the host's share of a step moves between runs) and its peak device
-memory. Prints the card's name and power limit
-and one JSON line per process. Imports nothing of JAX.
+and the device time of each kernel that a K6 or a K7 call launches, by
+name, from ``torch.profiler`` (the stage kernels ``teacher_fwd_<stage>``
+and ``teacher_bwd_<stage>`` where the checkout has them). Then six
+``train_step``s of a randomly initialised d2/w512 model at B=256,
+T=Td=128, bfloat16, without masked padding (the best step after the
+first, host clock around a synchronised step; the host's share of a step
+moves between runs) and its peak device memory. Prints the card's name
+and power limit and one JSON line per process. Imports nothing of JAX.
 """
 
 import argparse
@@ -51,15 +51,16 @@ def ms(fn, reps=5):
     return a.elapsed_time(b) / reps
 
 
-def kernel_ms(fn):
-    """Device ms of each CUDA kernel of one fn() call, by kernel name."""
+def kernel_ms(fn, kind):
+    """Device ms of each CUDA kernel of one fn() call whose name starts
+    with teacher_<kind>, by kernel name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        found = re.search(r'teacher_bwd\w*', e.key)
+        found = re.search(r'teacher_%s\w*' % kind, e.key)
         us = e.self_device_time_total
         if found and us > 0:
             name = found.group(0)
@@ -98,7 +99,10 @@ for dt in (torch.bfloat16, torch.float32):
            b_UW, maskc, ww)
     out['K7_%s_ms' % name] = ms(lambda: tk.teacher_bwd(*bwd))
     out['K6_%s_ms' % name] = ms(lambda: tk.teacher_fwd(*ins, ww))
-    out['K7_%s_kernels_ms' % name] = kernel_ms(lambda: tk.teacher_bwd(*bwd))
+    out['K7_%s_kernels_ms' % name] = kernel_ms(lambda: tk.teacher_bwd(*bwd),
+                                               'bwd')
+    out['K6_%s_kernels_ms' % name] = kernel_ms(
+        lambda: tk.teacher_fwd(*ins, ww), 'fwd')
     del ins, hs, cs, aa, zs, g, bwd
 pairs = make_pairs(256, seed=7)
 sources = [a + '\n' for a, _ in pairs]
