@@ -1401,9 +1401,18 @@ def main():
     flops_step = 2 * (V * W + 2 * W * 4 * W + W * W + win * W + win * A
                       + (W + A) * 4 * W + W * 4 * W + V * W)
     k1_bound, k1_by = bound(k1_bytes, flops_step * steps, 'bfloat16')
+    # the launch runs until its longest line is done: its steps set the time
+    k1_steps = int(length.max())
+    k1_plan = dlk.decode_loop_plan(W, A, V, k1_args[8], lines=B)
     print('K1 B=%d T=%d: kernel %.3f ms, plain twin %.3f ms, bound %.4f ms '
           '(%s; %d line-steps)' % (B, T, k1_ms, k1_plain_ms, k1_bound,
                                    k1_by, steps))
+    print('K1 grid: %d unit blocks of %d units, %d attention and %d readout '
+          'blocks, %d bytes of shared memory a block; longest line %d '
+          'steps, %.2f us a step'
+          % (k1_plan['unit_blocks'], k1_plan['units_per_block'],
+             k1_plan['line_blocks'], k1_plan['line_blocks'],
+             k1_plan['smem_bytes'], k1_steps, 1e3 * k1_ms / max(k1_steps, 1)))
 
     # K2 at D=1024, W=512 (the top cell's input): B=256 in float32 (the
     # dtype the f32 serving path launches it with) goes into the kernels
@@ -1507,6 +1516,11 @@ def main():
     kernels = [
         dict(name='decode_loop', route='cuda',
              source='cor_asv_ann_tpu_torch/csrc/decode_loop.cu',
+             design='one cooperative launch per tile of 16 lines: unit '
+                    'blocks with their gate columns resident in shared '
+                    'memory and the products on mma.sync, attention and '
+                    'readout blocks for the lines, the readout of a step '
+                    'beside the attention of the next',
              replaces='cor_asv_ann_tpu/ops/pallas_decode_loop.py:112',
              launches=launches['decode_loop'], max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,

@@ -3,8 +3,8 @@
 Every source named in ``SOURCES`` (``csrc/lstm_step.cu``: K2,
 ``csrc/decode_loop.cu``: K1, ``csrc/lstm_scan.cu``: K4 and K5,
 ``csrc/teacher_scan.cu``: K6, ``csrc/teacher_bwd.cu``: K7,
-``csrc/decode_step.cu``: K3; K2-K7 share ``csrc/scan_common.cuh``, K4
-and K5 also use ``csrc/scan_grid.cuh``, K2, K3, K6 and K7
+``csrc/decode_step.cu``: K3; all share ``csrc/scan_common.cuh``, K4
+and K5 also use ``csrc/scan_grid.cuh``, K1, K2, K3, K6 and K7
 ``csrc/step_tile.cuh`` over it) is
 compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into
@@ -41,8 +41,8 @@ SIGNATURES = {
     'cor_kernels_error_string': (ctypes.c_char_p, [I]),
     'lstm_step_plan': (I, [I] * 6 + [P]),
     'lstm_step_launch': (I, [I] + [P] * 8 + [I] * 5 + [P]),
-    'decode_loop_smem_bytes': (ctypes.c_longlong, [I] * 4),
-    'decode_loop_launch': (I, [P] * 19 + [P] * 4 + [I] * 8 + [P]),
+    'decode_loop_plan': (I, [I] * 6 + [P]),
+    'decode_loop_launch': (I, [P] * 4 + [I] * 9 + [P]),
     'lstm_scan_max_width': (I, []),
     'lstm_scan_plan': (I, [I] * 6 + [P]),
     'lstm_scan_fwd_launch': (I, [I] + [P] * 9 + [I] * 6 + [P]),
@@ -134,10 +134,11 @@ def library():
     return _lib
 
 
-def check(err, what):
-    """Raise if a launcher reported a CUDA error."""
+def check(err, what, lib=None):
+    """Raise if a launcher of `lib` (default: the built library) reported
+    a CUDA error."""
     if err != 0:
-        msg = library().cor_kernels_error_string(err).decode()
+        msg = (lib or library()).cor_kernels_error_string(err).decode()
         raise RuntimeError('%s failed: CUDA error %d (%s)' % (what, err, msg))
 
 

@@ -1,5 +1,5 @@
-"""K1: the whole greedy decode loop as one CUDA kernel launch
-(``csrc/decode_loop.cu``).
+"""K1: the whole greedy decode loop, one cooperative CUDA launch per tile
+of up to 16 lines (``csrc/decode_loop.cu``).
 
 Replaces the JAX package's Pallas kernel ``ops/pallas_decode_loop.py:
 _kernel`` (``decode_greedy_fused``). Each step of a line: embed the
@@ -9,13 +9,19 @@ the attention LSTM cell, the tied softmax readout, argmax over indices
 ``-log max(p, 1e-30)`` score. Depth 2, no residual connections,
 bfloat16 weights.
 
-The TPU kernel keeps all decoder weights resident in 16 MB of VMEM. A
-Hopper block has at most 227 KB of shared memory, so the CUDA kernel runs
-one block per line: the step loop runs inside the block and exits when
-the line is done, the weights stream from global memory (they fit in the
-50 MB L2), and the line's recurrent state, feedback, alignment and
-energies stay in shared memory. Its limit on T comes from that scratch
-(`max_decode_t`).
+The TPU kernel keeps all decoder weights resident in 16 MB of VMEM. On
+Hopper the launch spreads them over the SMs: unit blocks each keep the
+gate columns of a slice of units of k1, r1, k2, r2 and W_a in shared
+memory for the whole loop and run the tile's products on ``mma.sync``
+with the gates in their epilogue; attention blocks own lines of the tile
+and run their windowed attention; as many readout blocks, with E
+resident, run their readout, beside the attention of the next step. The
+blocks exchange h1, h2, x, wvec, ctx and the lines' done flags through a
+small scratch buffer and meet at counters, four a step. The launcher
+picks the split from the widths and the card's SM count and shared
+memory (`decode_loop_plan`); T is bounded only where the window centre's
+products stop being exact in float32 (`max_decode_t`). Batches of more
+than 16 lines run as tiles in turn, each one launch.
 
 ``decode_loop_reference`` is the plain twin: a step-by-step PyTorch
 transcription of ``_kernel`` with the same rounding points. The wrapper
@@ -23,30 +29,49 @@ transcription of ``_kernel`` with the same rounding points. The wrapper
 launches the kernel or raises.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
 from .attention import NEG, softmax
 from .lstm import mm
 
+ROWS = 16            # lines of a tile: one launch
+_PLAN_KEYS = ('unit_blocks', 'line_blocks', 'units_per_block',
+              'gate_columns', 'tiles_per_pass', 'smem_bytes', 'max_t')
 
-def max_decode_t(width, attended_size, voc_size, device):
-    """Longest bucket T whose per-line scratch fits one block's shared
-    memory on `device` (the kernel keeps 2 float32 rows of length T)."""
-    lib = _build.library()
-    base = lib.decode_loop_smem_bytes(0, width, attended_size, voc_size)
-    per_t = lib.decode_loop_smem_bytes(1, width, attended_size,
-                                       voc_size) - base
-    limit = torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
-    return max(0, (limit - base) // per_t)
+
+def decode_loop_plan(width, attended_size, voc_size, window_width,
+                     lines=ROWS, units_per_block=0, lib=None):
+    """The grid a tile of `lines` lines takes on the current CUDA device
+    (`units_per_block` > 0 imposes one): a dict of `_PLAN_KEYS`
+    (`line_blocks`: attention blocks, and as many readout blocks), or None
+    where no plan fits (the widths, the window, or the card's SMs and
+    shared memory). `lib`: the kernel library, built at first use."""
+    lib = lib or _build.library()
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = lib.decode_loop_plan(lines, width, attended_size, voc_size,
+                               window_width, units_per_block, out)
+    return None if err else dict(zip(_PLAN_KEYS, out))
+
+
+def max_decode_t(width, attended_size, voc_size, window_width, device):
+    """Longest bucket T the kernel takes for these widths on `device`
+    (its lines keep only their window in shared memory, so T is bounded
+    where a.t of the window centre's sum stops being exact in float32),
+    or 0 where the decoder's weights do not fit the card."""
+    with torch.cuda.device(device):
+        plan = decode_loop_plan(width, attended_size, voc_size,
+                                window_width)
+    return plan['max_t'] if plan else 0
 
 
 def fused_greedy_supported(params, config, T):
     """Whether `decode_greedy_fused` can run this model and bucket: depth
     2, no residual connections, a local window, bfloat16 weights on a
-    CUDA device, widths in multiples of 8 (16-byte loads) and T within
-    the kernel's shared-memory scratch."""
+    CUDA device, widths in multiples of 8 whose weights the card's SMs
+    hold in their shared memory, and T within `max_decode_t`."""
     if config.depth != 2 or config.residual_connections:
         return False
     if config.window_width <= 0:
@@ -57,7 +82,8 @@ def fused_greedy_supported(params, config, T):
     if config.width % 8 or config.attended_size % 8:
         return False
     return T <= max_decode_t(config.width, config.attended_size,
-                             config.voc_size, emb.device)
+                             config.voc_size, config.window_width,
+                             emb.device)
 
 
 def _gates(z, c_prev, W):
@@ -150,21 +176,23 @@ _WEIGHT_ORDER = ('E', 'k1', 'r1', 'b1', 'k2', 'r2', 'b2', 'W_a', 'v_a',
                  'b_UW', 'b_v')
 
 
-def decode_loop(attended, u, states, live, enc_mask, weights, newline, S,
-                ww):
-    """The greedy loop of one batch: the CUDA kernel on CUDA tensors, the
-    plain twin on CPU tensors. Arguments and results as for
-    `decode_loop_reference`."""
+def _aligned(t):
+    """t, contiguous and 16-byte aligned (the kernel reads rows in
+    16-byte pieces)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def run_kernel(lib, attended, u, states, live, enc_mask, weights, newline,
+               S, ww, units_per_block=0, stream=None):
+    """Launch K1 from `lib` on the tiles of the batch: (idx, prob, length,
+    score, tiles). Arguments and checks as for `decode_loop`, whose CUDA
+    path this is; the emulated build of the tests calls it on CPU
+    tensors."""
     (h1, c1), (h2, c2) = states
     inputs = [attended, u, h1, c1, h2, c2, live, enc_mask] \
         + [weights[k] for k in _WEIGHT_ORDER]
-    if all(t.device.type == 'cpu' for t in inputs):
-        return decode_loop_reference(attended, u, states, live, enc_mask,
-                                     weights, newline, S, ww)
     dev = u.device
-    if dev.type != 'cuda' or any(t.device != dev for t in inputs):
-        raise ValueError('decode_loop: tensors must all be on one CUDA '
-                         'device (or all on the CPU)')
     B, T, W = u.shape
     A = attended.shape[2]
     V = weights['E'].shape[0]
@@ -189,22 +217,46 @@ def decode_loop(attended, u, states, live, enc_mask, weights, newline, S,
                  and weights['b_v'].shape == (1,))
     if not shapes_ok or W % 8 or A % 8:
         raise ValueError('decode_loop: inconsistent shapes')
-    if T > max_decode_t(W, A, V, dev):
-        raise ValueError('decode_loop: T=%d exceeds the kernel scratch' % T)
-    inputs = [t.contiguous() for t in inputs]
+    inputs = [_aligned(t) for t in inputs]
+    tiles = -(-B // ROWS)
     out_idx = torch.zeros((B, S), dtype=torch.int32, device=dev)
     out_prob = torch.zeros((B, S), dtype=torch.float32, device=dev)
     length = torch.zeros((B,), dtype=torch.int32, device=dev)
     score = torch.zeros((B,), dtype=torch.float32, device=dev)
-    lib = _build.library()
+    # exchange between the blocks: h1 (two copies), h2, x, wvec, ctx
+    xch = torch.zeros((ROWS * (5 * W + A),), dtype=bf16, device=dev)
+    # the lines' done flags, then 4 counters a tile, zero
+    ints = torch.zeros((ROWS + 4 * tiles,), dtype=torch.int32, device=dev)
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
     err = lib.decode_loop_launch(
-        *(t.data_ptr() for t in inputs),
-        out_idx.data_ptr(), out_prob.data_ptr(), length.data_ptr(),
-        score.data_ptr(), B, T, W, A, V, S, int(ww), int(newline),
-        _build.stream_of(u))
-    _build.check(err, 'decode_loop kernel')
-    decode_loop.launches += 1
-    return out_idx, out_prob, length, score
+        ptrs(inputs), ptrs([out_idx, out_prob, length, score]),
+        xch.data_ptr(), ints.data_ptr(), B, T, W, A, V, S, int(ww),
+        int(newline), int(units_per_block), stream)
+    _build.check(err, 'decode_loop kernel', lib)
+    return out_idx, out_prob, length, score, tiles
+
+
+def decode_loop(attended, u, states, live, enc_mask, weights, newline, S,
+                ww, units_per_block=0):
+    """The greedy loop of one batch: the CUDA kernel on CUDA tensors (one
+    launch per tile of 16 lines; `units_per_block` > 0 imposes the split,
+    tests and tools only), the plain twin on CPU tensors. Arguments and
+    results as for `decode_loop_reference`."""
+    (h1, c1), (h2, c2) = states
+    inputs = [attended, u, h1, c1, h2, c2, live, enc_mask] \
+        + [weights[k] for k in _WEIGHT_ORDER]
+    if all(t.device.type == 'cpu' for t in inputs):
+        return decode_loop_reference(attended, u, states, live, enc_mask,
+                                     weights, newline, S, ww)
+    dev = u.device
+    if dev.type != 'cuda' or any(t.device != dev for t in inputs):
+        raise ValueError('decode_loop: tensors must all be on one CUDA '
+                         'device (or all on the CPU)')
+    *out, tiles = run_kernel(_build.library(), attended, u, states, live,
+                             enc_mask, weights, newline, S, ww,
+                             units_per_block, _build.stream_of(u))
+    decode_loop.launches += tiles
+    return tuple(out)
 
 
 decode_loop.launches = 0
@@ -215,7 +267,8 @@ def decode_greedy_fused(params, config, enc_input, newline_idx,
     """Whole-loop greedy decode. Same contract as
     ``models.seq2seq.decode_greedy`` minus alignments (None there).
     Encodes with the port's ``encode``, then runs the loop in one
-    launch. Callers check `fused_greedy_supported` first."""
+    launch per tile of 16 lines. Callers check `fused_greedy_supported`
+    first."""
     from ..models.seq2seq import encode, ensure_onehot
     enc_input = ensure_onehot(enc_input, config, params)
     B, T, V = enc_input.shape

@@ -1,12 +1,14 @@
 // Stand-in for <cuda_runtime.h> that lets a host C++20 compiler build the
 // port's kernels (csrc/lstm_step.cu, csrc/lstm_scan.cu, csrc/teacher_scan.cu,
-// csrc/decode_step.cu) and run them on the CPU: one OS thread per CUDA thread,
-// __syncthreads as a barrier over the block, warp shuffles, __syncwarp, the
+// csrc/teacher_bwd.cu, csrc/decode_step.cu, csrc/decode_loop.cu) and run them
+// on the CPU: one OS thread per CUDA thread,
+// __syncthreads (and __syncthreads_or) as a barrier over the block, warp shuffles, __syncwarp, the
 // bf16 tensor-core instruction and ldmatrix through per-warp exchange buffers. The blocks of a
 // `<<<...>>>` launch run one after another; the blocks of a cooperative launch
 // (cudaLaunchCooperativeKernel) all at once, on a card of EMU_SM_COUNT SMs
 // that holds one block per SM, so that blocks can wait on each other through
-// a counter in global memory (release adds, acquire loads). It knows only the constructs
+// a counter in global memory (release adds, acquire loads, and loads that
+// bypass L1 of what the other blocks wrote). It knows only the constructs
 // those sources use. The launch syntax `kernel<<<grid, threads, smem,
 // stream>>>(args)` and the `extern __shared__` declaration are rewritten by
 // tests/test_torch_kernel_emulation.py (to emu::launch and emu::smem) before
@@ -89,6 +91,13 @@ inline int ld_acquire_standin(const int* p) {
   return std::atomic_ref<int>(*const_cast<int*>(p)).load(std::memory_order_acquire);
 }
 
+// ld.global.cg: a load from L2, past a possibly stale L1 (here: memory)
+template <class V> V ld_cg_standin(const V* p) {
+  V v;
+  std::memcpy(&v, p, sizeof(V));
+  return v;
+}
+
 namespace emu {
 
 struct Block {
@@ -98,6 +107,7 @@ struct Block {
   std::vector<uint32_t> mma;                           // mma fragments, 6 words per thread
   std::vector<const void*> rows;                       // ldmatrix row addresses, one per thread
   std::vector<float4> smem;                            // dynamic shared memory
+  std::atomic<int> vote{0};                            // __syncthreads_or
 };
 extern thread_local Block* cur;
 
@@ -151,6 +161,18 @@ cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(A...), int grid, int nt, 
 }
 
 inline void __syncthreads() { emu::cur->bar->arrive_and_wait(); }
+
+// bar.red.or: a barrier over the block that returns non-zero where any
+// thread's predicate is
+inline int __syncthreads_or(int pred) {
+  emu::Block* b = emu::cur;
+  b->bar->arrive_and_wait();  // every thread has read the last vote
+  if (threadIdx.x == 0) b->vote.store(0);
+  b->bar->arrive_and_wait();
+  if (pred) b->vote.fetch_or(1);
+  b->bar->arrive_and_wait();
+  return b->vote.load();
+}
 
 // every lane of the warp must call it, as the kernels do
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::cur->wbar[threadIdx.x / 32]->arrive_and_wait(); }

@@ -8,6 +8,7 @@ conftest:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -103,41 +104,162 @@ def test_lstm_step_kernel_refuses_mixed_devices(dev):
                         torch.zeros((16,), device=dev))
 
 
-@pytest.mark.parametrize('mask_padding', [False, True])
-def test_decode_loop_kernel(dev, mask_padding):
-    """K1 against its plain twin on the card: a w64 model with a sharpened
-    readout, an empty line among the batch."""
-    mapping = CharMapping.from_texts(["abcdefgh .,\n"])
-    config = Seq2SeqConfig(width=64, depth=2, voc_size=mapping.voc_size,
+_K1_MAPPING = CharMapping.from_texts(["abcdefgh .,\n"])
+_K1_WORDS = ["abba", "dig.", "hi.", "deaf", "bad", "cab.", "gag.", "fed,",
+             "a", "bed", "hag."]
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_params(width, mask_padding):
+    """A random d2 model of `width` with a sharpened readout (margins well
+    above summation-order noise), as numpy arrays."""
+    config = Seq2SeqConfig(width=width, depth=2,
+                           voc_size=_K1_MAPPING.voc_size,
                            mask_padding=mask_padding)
     params = init_params(config, seed=11)
     params['char_embedding']['kernel'] *= 300.0
+    return config, params
+
+
+def _k1_args(dev, B, width, mask_padding, T=32, S=None):
+    """decode_loop's arguments for B lines of ragged lengths (line 2 empty)
+    through the encoder of `_k1_params`."""
+    config, params = _k1_params(width, mask_padding)
     pt = params_from_numpy(params, dev, torch.bfloat16)
-    lines = ["abba dig.\n", "hi.\n", "", "deaf bad cab.\n", "gag.\n"]
-    enc = torch.from_numpy(lines_to_index_batch(mapping, lines, pad_to=32,
+    rng = np.random.default_rng(B)
+    lines = [" ".join(rng.choice(_K1_WORDS, rng.integers(1, 5))) + "\n"
+             for _ in range(B)]
+    if B > 2:
+        lines[2] = ""
+    enc = torch.from_numpy(lines_to_index_batch(_K1_MAPPING, lines, pad_to=T,
                                                 bucketed=False)).to(dev)
-    assert dlk.fused_greedy_supported(pt, config, 32)
     onehot = ensure_onehot(enc, config, pt)
     attended, states, u = encode(pt, config, onehot)
-    B, T = enc.shape
     live = onehot.reshape(B, -1).ne(0).any(dim=1).to(torch.int32)
     mask = (onehot.ne(0).any(dim=2).to(torch.int32) if mask_padding
             else torch.ones((B, T), dtype=torch.int32, device=dev))
-    args = (attended, u, states, live, mask, dlk.decoder_weights(pt),
-            mapping.get('\n'), 2 * T, config.window_width)
-    idx_k, prob_k, len_k, sc_k = dlk.decode_loop(*args)
-    torch.cuda.synchronize()
-    idx_r, prob_r, len_r, sc_r = dlk.decode_loop_reference(*args)
-    assert int(len_k[2]) == 0 and float(sc_k[2]) == 0.0
-    for b in range(B):
+    return pt, config, (attended, u, states, live, mask,
+                        dlk.decoder_weights(pt), _K1_MAPPING.get('\n'),
+                        2 * T if S is None else S, config.window_width)
+
+
+def _k1_agree(got, want):
+    """Equal indices and lengths, or, where summation order flips a near
+    tie, equal chosen probabilities (within 2e-2) up to the first
+    divergence."""
+    idx_k, prob_k, len_k, _ = got
+    idx_r, prob_r, len_r, _ = want
+    for b in range(idx_r.shape[0]):
         L = int(len_r[b])
         if int(len_k[b]) == L and torch.equal(idx_k[b, :L], idx_r[b, :L]):
             continue
-        # summation order may flip a near-tie: the chosen probabilities
-        # must agree up to the first divergence
         d = int(torch.nonzero(idx_k[b] != idx_r[b])[0])
         torch.testing.assert_close(prob_k[b, :d + 1], prob_r[b, :d + 1],
                                    atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize('mask_padding', [False, True])
+@pytest.mark.parametrize('width', [64, 512])
+@pytest.mark.parametrize('B', [1, 5, 16, 17, 40])
+def test_decode_loop_kernel(dev, mask_padding, width, B):
+    """K1 against its plain twin on the card: random d2 models with a
+    sharpened readout at W = 64 and the flagship's 512, one tile of 1, 5
+    or 16 lines, or 17 and 40 lines in tiles of 16 run in turn; an empty
+    line among them."""
+    pt, config, args = _k1_args(dev, B, width, mask_padding)
+    assert dlk.fused_greedy_supported(pt, config, 32)
+    before = dlk.decode_loop.launches
+    got = dlk.decode_loop(*args)
+    torch.cuda.synchronize()
+    assert dlk.decode_loop.launches == before + -(-B // 16)
+    want = dlk.decode_loop_reference(*args)
+    if B > 2:
+        assert int(got[2][2]) == 0 and float(got[3][2]) == 0.0
+    _k1_agree(got, want)
+
+
+@pytest.mark.parametrize('mask_padding', [False, True])
+@pytest.mark.parametrize('B', [5, 17])
+def test_decode_loop_kernel_widest(dev, mask_padding, B):
+    """W = A = 768, the widest the card's shared memory holds: 128 unit
+    blocks leave two attention blocks of 8 lines each, whose windows do not
+    all fit in shared memory, so the lines beyond the prefetched ones load
+    theirs when their attention starts."""
+    pt, config, args = _k1_args(dev, B, 768, mask_padding)
+    assert dlk.fused_greedy_supported(pt, config, 32)
+    plan = dlk.decode_loop_plan(768, 768, config.voc_size,
+                                config.window_width, lines=16)
+    assert plan['unit_blocks'] == 128 and plan['line_blocks'] == 2
+    got = dlk.decode_loop(*args)
+    torch.cuda.synchronize()
+    _k1_agree(got, dlk.decode_loop_reference(*args))
+
+
+@pytest.mark.parametrize('mask_padding', [False, True])
+def test_decode_loop_kernel_longest_t(dev, mask_padding):
+    """The longest bucket `max_decode_t` admits at W = 64 (65,536
+    positions; the kernel keeps only the window), 40 steps of 3 lines on
+    random encoder rows and weights."""
+    config, params = _k1_params(64, mask_padding)
+    pt = params_from_numpy(params, dev, torch.bfloat16)
+    W, V, ww = 64, config.voc_size, config.window_width
+    T = dlk.max_decode_t(W, config.attended_size, V, ww, dev)
+    assert T == 65536
+    assert dlk.fused_greedy_supported(pt, config, T)
+    assert not dlk.fused_greedy_supported(pt, config, T + 1)
+    gen = torch.Generator().manual_seed(3)
+    mk = lambda *shape: (torch.randn(*shape, generator=gen) * 0.5).to(
+        torch.bfloat16).to(dev)
+    B = 3
+    states = [(mk(B, W), mk(B, W)) for _ in range(2)]
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    if mask_padding:
+        mask[1, 20:] = 0
+    live = torch.ones((B,), dtype=torch.int32, device=dev)
+    args = (mk(B, T, config.attended_size), mk(B, T, W), states, live, mask,
+            dlk.decoder_weights(pt), _K1_MAPPING.get('\n'), 40, ww)
+    got = dlk.decode_loop(*args)
+    torch.cuda.synchronize()
+    _k1_agree(got, dlk.decode_loop_reference(*args))
+
+
+def test_decode_loop_kernel_equal_bits(dev):
+    """Two launches at the flagship's width give the same bits (fixed
+    summation order, no atomics in any sum), with the launcher's split and
+    with imposed ones; another split sums in another order and agrees by
+    the near-tie rule."""
+    _, _, args = _k1_args(dev, 16, 512, True)
+    first = dlk.decode_loop(*args)
+    for us in (0, 4, 5):
+        got = dlk.decode_loop(*args, units_per_block=us)
+        again = dlk.decode_loop(*args, units_per_block=us)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        _k1_agree(got, first)
+
+
+def test_decode_loop_limits(dev):
+    """What `fused_greedy_supported` accepts and the launcher takes: the
+    flagship and every width that is a multiple of 8 up to 768; not W =
+    1024, whose weights the SMs' shared memory does not hold, nor a grid
+    of more blocks than SMs."""
+    from cor_asv_ann_tpu_torch.models.config import Seq2SeqConfig as C
+    emb = {'char_embedding': {'kernel': torch.zeros(
+        (45, 8), dtype=torch.bfloat16, device=dev)}}
+    for W in range(8, 769, 8):
+        assert dlk.fused_greedy_supported(emb, C(width=W, depth=2,
+                                                 voc_size=45), 64), W
+    flagship = C(width=512, depth=2, voc_size=45)
+    assert dlk.fused_greedy_supported(emb, flagship, 22600)
+    assert not dlk.fused_greedy_supported(emb, C(width=1024, depth=2,
+                                                 voc_size=45), 64)
+    plan = dlk.decode_loop_plan(512, 512, 45, 5)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan['unit_blocks'] + 2 * plan['line_blocks'] <= n_sm
+    assert dlk.decode_loop_plan(512, 512, 45, 5, units_per_block=2) is None
+    _, _, args = _k1_args(dev, 2, 64, False)
+    with pytest.raises(RuntimeError):
+        dlk.decode_loop(*args, units_per_block=17)
 
 
 def test_fused_dispatch_counts_launches(dev):

@@ -1,13 +1,14 @@
-"""PyTorch port: the CUDA sources of the LSTM step, the scan kernels and
-the fused decode step, run on the CPU.
+"""PyTorch port: the CUDA sources of the decode loop, the LSTM step, the
+scan kernels and the fused decode step, run on the CPU.
 
 There is no GPU and no ``nvcc`` where these tests run, but the kernels
-K2-K7 (``csrc/lstm_step.cu``, ``csrc/decode_step.cu``,
-``csrc/lstm_scan.cu``, ``csrc/teacher_scan.cu``, ``csrc/teacher_bwd.cu`` over
-``csrc/scan_common.cuh``, ``csrc/scan_grid.cuh``, ``csrc/step_tile.cuh``)
-use few CUDA constructs: blocks of threads, a block barrier, warp
-shuffles, dynamic shared memory, bf16 conversions, ``mma.sync``,
-``ldmatrix``, ``cp.async``.
+K1-K7 (``csrc/decode_loop.cu``, ``csrc/lstm_step.cu``,
+``csrc/decode_step.cu``, ``csrc/lstm_scan.cu``, ``csrc/teacher_scan.cu``,
+``csrc/teacher_bwd.cu`` over ``csrc/scan_common.cuh``,
+``csrc/scan_grid.cuh``, ``csrc/step_tile.cuh``) use few CUDA constructs:
+blocks of threads, a block barrier, warp shuffles, dynamic shared memory,
+bf16 conversions, ``mma.sync``, ``ldmatrix``, ``cp.async``, counters in
+global memory that the blocks of a cooperative grid meet at.
 ``tests/cuda_emulation/`` holds stand-ins for ``cuda_runtime.h`` and
 ``cuda_bf16.h`` that give a host compiler exactly those (one OS thread
 per CUDA thread, blocks one after another). With the launch syntax
@@ -20,7 +21,8 @@ chip_smoke.py).
 
 Tolerances: float32 2e-5 (summation order, libm against PyTorch's
 exp/tanh); bfloat16 3e-2 (an ulp of a gate carried along the sweep;
-gradients relative to their scale). Skipped where no C++20 ``g++`` is
+gradients relative to their scale); K1's greedy picks equal up to a near
+tie, its probabilities within 2e-2 up to there. Skipped where no C++20 ``g++`` is
 installed.
 """
 
@@ -35,6 +37,7 @@ import pytest
 import torch
 
 from cor_asv_ann_tpu_torch.ops import _build
+from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
 from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
 from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
 from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
@@ -43,10 +46,11 @@ from torch_port_fixtures import single_threaded_cpu  # noqa: F401
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'cuda_emulation')
 # source -> (<<<...>>> launches, kernels declaring dynamic shared memory);
-# lstm_scan.cu launches its two kernels through cudaLaunchCooperativeKernel
+# lstm_scan.cu and decode_loop.cu launch their kernels through
+# cudaLaunchCooperativeKernel
 SOURCES = {'lstm_scan.cu': (0, 2), 'teacher_scan.cu': (3, 3),
            'teacher_bwd.cu': (5, 4), 'decode_step.cu': (5, 4),
-           'lstm_step.cu': (1, 1)}
+           'lstm_step.cu': (1, 1), 'decode_loop.cu': (0, 1)}
 CODE = {torch.float32: 0, torch.bfloat16: 1}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DTYPES = pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -94,7 +98,7 @@ def lib(tmp_path_factory):
     library = ctypes.CDLL(str(out))
     for name, (restype, argtypes) in _build.SIGNATURES.items():
         if name.startswith(('lstm_scan', 'lstm_step', 'teacher',
-                            'decode_step')):
+                            'decode_step', 'decode_loop', 'cor_kernels')):
             fn = getattr(library, name)
             fn.restype, fn.argtypes = restype, argtypes
     return library
@@ -474,3 +478,96 @@ def test_emulated_launchers_refuse_what_the_kernels_cannot_take(lib):
     assert _launch_teacher_fwd(lib, 0, ins, outs, 2, 2, 4, 12, 16, 2) != 0
     assert _launch_teacher_fwd(lib, 7, ins, outs, 2, 2, 4, 16, 16, 2) != 0
     assert _launch_teacher_fwd(lib, 0, ins, outs, 2, 2, 4, 16, 16, 0) != 0
+
+
+def _loop_inputs(B, T, W, A, V, ww, masked, seed):
+    """K1's inputs: random bf16 states, encoder rows and weights, E
+    sharpened so that the readout's picks have margins; line 2 (where B >
+    2) is empty, and with `masked` the lines have ragged lengths."""
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+    att, u = _mk(rng, (B, T, A), .5, bf), _mk(rng, (B, T, W), .5, bf)
+    states = [(_mk(rng, (B, W), .5, bf), _mk(rng, (B, W), .5, bf))
+              for _ in range(2)]
+    shapes = dict(E=(V, W), k1=(W, 4 * W), r1=(W, 4 * W), b1=(4 * W,),
+                  k2=(W + A, 4 * W), r2=(W, 4 * W), b2=(4 * W,),
+                  W_a=(W, W), v_a=(W, 1), b_UW=(W,), b_v=(1,))
+    weights = {k: _mk(rng, shape, .3, bf) for k, shape in shapes.items()}
+    weights['E'] = _mk(rng, (V, W), 3.0, bf)
+    lengths = rng.integers(1, T + 1, B) if masked else np.full(B, T)
+    live = torch.ones(B, dtype=torch.int32)
+    if B > 2:
+        live[2], lengths[2] = 0, 0
+    mask = torch.from_numpy(
+        (np.arange(T)[None, :] < lengths[:, None]).astype(np.int32))
+    return att, u, states, live, mask, weights
+
+
+def _assert_decodes_agree(got, want):
+    """Indices and lengths equal, or, where summation order flips a near
+    tie, the chosen probabilities equal within 2e-2 up to the first
+    divergence; scores within 1e-2 a step where the line agrees."""
+    idx_k, prob_k, len_k, sc_k = got
+    idx_r, prob_r, len_r, sc_r = want
+    for b in range(idx_r.shape[0]):
+        L = int(len_r[b])
+        if int(len_k[b]) == L and torch.equal(idx_k[b], idx_r[b]):
+            assert float((prob_k[b] - prob_r[b]).abs().max()) <= 2e-2
+            assert abs(float(sc_k[b] - sc_r[b])) <= 1e-2 * max(L, 1)
+            continue
+        d = int(torch.nonzero(idx_k[b] != idx_r[b])[0])
+        assert float((prob_k[b, :d + 1] - prob_r[b, :d + 1]).abs().max()) \
+            <= 2e-2
+
+
+# (B, T, W, A, V, ww, units a unit block (0: the launcher's plan), masked):
+# a ragged tile of 5 lines with an empty one, W = 40 (a multiple of 8, not
+# of 16: the reduction padded to 32), the launcher's 3 unit blocks of 14
+# units (seven n8 tiles) and one attention and one readout block for all
+# five lines, unmasked and masked; imposed 8 units at W = 16 (2 unit
+# blocks of four n8 tiles), launched twice; 17 lines: a tile of 16 (one
+# unit block, 2 + 2 line blocks of 8 lines), then a tile of one
+LOOP_SHAPES = [(5, 7, 40, 24, 13, 2, 0, False), (5, 7, 40, 24, 13, 2, 0, True),
+               (5, 5, 16, 24, 11, 1, 8, True), (17, 4, 16, 32, 7, 1, 0, False)]
+
+
+@pytest.mark.parametrize('B,T,W,A,V,ww,us,masked', LOOP_SHAPES)
+def test_emulated_decode_loop(lib, B, T, W, A, V, ww, us, masked):
+    """K1's cooperative grid on the 6-SM stand-in against
+    decode_loop_reference: unit blocks and line blocks meeting at their
+    counters three times a step until every line of the tile is done."""
+    att, u, states, live, mask, weights = _loop_inputs(
+        B, T, W, A, V, ww, masked, seed=B + W)
+    args = (att, u, states, live, mask, weights, 3, 2 * T, ww)
+    *got, tiles = dlk.run_kernel(lib, *args, units_per_block=us)
+    assert tiles == -(-B // 16)
+    want = dlk.decode_loop_reference(*args)
+    if B > 2:
+        assert int(got[2][2]) == 0 and float(got[3][2]) == 0.0
+        assert float(got[0][2].abs().sum()) == 0.0
+    _assert_decodes_agree(got, want)
+    if us:    # two launches give the same bits
+        *again, _ = dlk.run_kernel(lib, *args, units_per_block=us)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_emulated_decode_loop_plans(lib):
+    """The grids K1's launcher picks on 6 SMs, and what it refuses."""
+    plan = lambda *a, **k: dlk.decode_loop_plan(*a, lib=lib, **k)
+    # the most line blocks the SMs left over allow, then the fewest unit
+    # blocks, then the fewest n8 tiles
+    assert plan(40, 24, 13, 2, lines=5) == dict(
+        plan(40, 24, 13, 2, lines=5), unit_blocks=3, line_blocks=1,
+        units_per_block=14, gate_columns=56, tiles_per_pass=14)
+    p = plan(16, 32, 7, 1, lines=16)
+    assert (p['unit_blocks'], p['line_blocks'], p['gate_columns']) \
+        == (1, 2, 64)
+    p = plan(16, 24, 11, 1, lines=5, units_per_block=8)
+    assert (p['unit_blocks'], p['line_blocks'], p['gate_columns']) \
+        == (2, 2, 32)
+    assert plan(16, 32, 7, 1, lines=1)['line_blocks'] == 1
+    assert plan(512, 512, 45, 5) is None            # 128 unit blocks at least
+    assert plan(12, 16, 7, 1) is None                # not a multiple of 8
+    assert plan(40, 24, 13, 0) is None               # no window
+    assert plan(40, 24, 13, 2, units_per_block=8) is None  # 5 + 2 blocks
+    assert plan(40, 24, 13, 2, lines=17) is None
