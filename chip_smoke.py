@@ -20,7 +20,13 @@ and drives the three paths of the port:
 - beam serving of the flagship through ``correct_lines(greedy=False)``:
   float32 on the per-op route against every beam golden of the repo,
   float32 and bfloat16 through the fused decode-step kernel, and the
-  ``proc`` and ``eval`` command lines as modules.
+  ``proc`` and ``eval`` command lines as modules;
+- ocrd-cor-asv-ann-process of the flagship on a PAGE-XML workspace
+  (``python -m cor_asv_ann_tpu_torch.wrapper.transcode`` on the default
+  device) against the JAX processor's golden
+  (``tests/golden_page_process.json``), the port's evaluate on its
+  output, the beam in bfloat16 through the fused decode-step kernel, and
+  the processor server.
 
 It shows that each path launched its kernels, and times the kernels.
 Any failed check raises, so the script exits non-zero. It imports
@@ -965,12 +971,14 @@ def step_tolerance(torch, dt):
 
 # rows of one beam step (lines x expanded nodes) on the flagship: the
 # automatic bounds expand K = min(48, R) nodes, R = 32 at rejection <= 0.3
-# (what `beam_path` serves) and R = 64 above it (the command lines'
-# default, 0.5), at batch sizes 256 and 16 and in the 128-line bucket
+# (what `beam_path` serves) and R = 64 above it (the command lines' and
+# the processor's default, 0.5), at batch sizes 256 and 16, in the
+# 128-line bucket and in the 32-line bucket of `processor_path`'s 24 lines
 STEP_ROWS = {'B256_r03': 8192, 'B128_r03': 4096, 'B16_r03': 512,
-             'B256_r05': 12288, 'B16_r05': 768}
+             'B256_r05': 12288, 'B16_r05': 768, 'B32_r05': 1536}
 # rows of a line at those steps (K), and the encoder rows of a line
-STEP_LINE_ROWS = {8192: 32, 4096: 32, 512: 32, 12288: 48, 768: 48}
+STEP_LINE_ROWS = {8192: 32, 4096: 32, 512: 32, 12288: 48, 768: 48,
+                  1536: 48}
 STEP_T = 64
 
 
@@ -1268,6 +1276,215 @@ def beam_path(torch, dev, goldens, golden_corpus, tmp, launches_of):
     return report
 
 
+PROCESSOR_CASES = ('glyph_beam', 'glyph_fast', 'line_beam')
+
+
+def processor_path(torch, tmp, k3_launches):
+    """ocrd-cor-asv-ann-process of the port on the flagship, held against
+    the JAX processor's golden (tests/golden_page_process.json): (a) each
+    case of the golden as ``python -m cor_asv_ann_tpu_torch.wrapper.
+    transcode`` on the default device, f32, texts equal and confs within
+    1e-3; (b) the port's evaluate on the glyph-level beam's output, its
+    report equal to the golden's; (c) the glyph-level beam in bf16 through
+    K3 (rejection 0.5, with alignments): of the 24 lines no fewer equal to
+    the f32 golden than 22 and than the per-op bf16 route's less 2; (d)
+    the processor server, byte-equal to the direct run; (e) the
+    processor's times."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from torch_wrapper_pages import compare_pages, line_texts, write_workspace
+    from cor_asv_ann_tpu_torch.utils import page as P
+    from cor_asv_ann_tpu_torch.utils.workspace import Workspace, make_workspace
+    from cor_asv_ann_tpu_torch.wrapper.evaluate import EvaluateLines
+    from cor_asv_ann_tpu_torch.wrapper.server import (ProcessorServer,
+                                                      client_process)
+    from cor_asv_ann_tpu_torch.wrapper.transcode import ANNCorrection
+    golden = load_json('tests', 'golden_page_process.json')
+    model = os.path.join(ROOT, golden['model_file'])
+    pages = {pid: data.encode('utf-8')
+             for pid, data in golden['pages'].items()}
+    n_lines = sum(len(line_texts(P, data)) for data in pages.values())
+    grp_in, grp_out = golden['input_file_grp'], golden['output_file_grp']
+
+    def workspace(name):
+        root = os.path.join(tmp, name)
+        write_workspace(make_workspace, root, pages, grp=grp_in)
+        return root
+
+    def outputs(root):
+        out = {}
+        for pid, f in Workspace(root).page_files(grp_out).items():
+            with open(f.path, 'rb') as fh:
+                out[pid] = fh.read()
+        return out
+
+    def flag(value):
+        return 'true' if value else 'false'
+
+    # (a) the command line as a module, f32 on the default device
+    report = {'lines': n_lines, 'pages': len(pages)}
+    direct = {}
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for case in PROCESSOR_CASES:
+        want = golden['cases'][case]
+        root = workspace(case)
+        params = ['-P', 'model_file', model]
+        for key, value in want['parameter'].items():
+            params += ['-P', key, flag(value) if isinstance(value, bool)
+                       else str(value)]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, '-m', 'cor_asv_ann_tpu_torch.wrapper.transcode',
+             '-m', root, '-I', grp_in, '-O', grp_out] + params,
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, 'wrapper.transcode %s exited with %d:\n%s'
+              % (case, run.returncode, run.stderr[-3000:]))
+        direct[case] = got = outputs(root)
+        check(sorted(got) == sorted(want['output']),
+              'wrapper.transcode %s wrote pages %s' % (case, sorted(got)))
+        worst = 0.0
+        for pid, data in want['output'].items():
+            try:
+                d, parted = compare_pages(data.encode('utf-8'), got[pid],
+                                          1e-3)
+            except AssertionError as exc:
+                raise RuntimeError('check failed: f32 processor %s, page %s '
+                                   'differs from the JAX golden at %s'
+                                   % (case, pid, exc)) from None
+            check(not parted, 'f32 processor %s parted lines %s'
+                  % (case, parted))
+            worst = max(worst, d)
+        report[case + '_max_conf_diff'] = worst
+        report[case + '_module_wall_s'] = wall
+        print('processor %-10s as a module on cuda: pages equal to the JAX '
+              'golden (tree, ids, coordinates, texts), largest conf '
+              'difference %.3g; %.2f s wall for the process' % (case, worst,
+                                                                wall))
+    check(k3_launches() == 0, 'the f32 processor launched K3')
+
+    # (b) evaluate of the glyph-level beam's output against its input
+    ev = golden['evaluate']
+    root = os.path.join(tmp, ev['case'])
+    proc = EvaluateLines(parameter={})
+    proc.process_workspace(root, ev['input_file_grp'].split(','), 'EVAL')
+    check(proc.report == ev['report'], 'evaluate report %s differs from '
+          'the golden %s' % (proc.report, ev['report']))
+    print('evaluate of the glyph-level beam output: report equal to the '
+          'golden (CER %.4f over %d lines)'
+          % (proc.report['COR,OCR']['char-error-rate-mean'],
+             proc.report['COR,OCR']['num-lines']))
+
+    # (c) + (e) in-process: f32 beam, fast mode, bf16 beam through K3
+    def timed_run(proc, name, reps=3):
+        """Correct the workspace once to warm up, then `reps` times;
+        returns the outputs and the best of the timed runs in s."""
+        best = None
+        for rep in range(reps + 1):
+            root = workspace('%s_%d' % (name, rep))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proc.process_workspace(root, [grp_in], grp_out)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if rep:
+                best = dt if best is None else min(best, dt)
+        return outputs(root), best
+
+    times = {}
+    glyph = golden['cases']['glyph_beam']
+    for name, fast in (('f32_beam', False), ('f32_fast', True)):
+        proc = ANNCorrection(parameter={'model_file': model,
+                                        'textequiv_level': 'glyph',
+                                        'fast_mode': fast})
+        check(proc.s2s.device.type == 'cuda', 'the processor serves on %s'
+              % proc.s2s.device)
+        out, times[name] = timed_run(proc, name)
+        case = 'glyph_fast' if fast else 'glyph_beam'
+        check(out == direct[case], 'in-process %s differs from the module '
+              'run' % name)
+    check(k3_launches() == 0, 'the f32 processor launched K3')
+    # bf16 through K3 under 'auto', timed; then once on the per-op route:
+    # the beam's bf16 bar is no fewer lines equal to the f32 golden than
+    # the per-op route less 2, and no fewer than all of them less 2
+    from cor_asv_ann_tpu_torch.models import beam
+    proc = ANNCorrection(parameter={'model_file': model,
+                                    'textequiv_level': 'glyph'})
+    proc.s2s.compute = 'bfloat16'
+    reps = 3
+    with StepCounter() as steps:
+        out, times['bf16_beam_k3'] = timed_run(proc, 'bf16', reps)
+    launched = k3_launches()
+    check(launched == steps.calls > 0, 'bf16 processor: %d launches of K3 '
+          'in %d beam iterations' % (launched, steps.calls))
+    check(steps.rows == STEP_ROWS['B32_r05'], 'bf16 processor: %d rows a '
+          'step, K3 was checked and timed at %d'
+          % (steps.rows, STEP_ROWS['B32_r05']))
+    beam._BEAM_STEP_KERNEL = 'off'
+    try:
+        out_p, times['bf16_beam_per_op'] = timed_run(proc, 'bf16_op', 1)
+    finally:
+        beam._BEAM_STEP_KERNEL = 'auto'
+    check(k3_launches() == launched, 'the per-op bf16 processor launched K3')
+
+    def texts(pages_out):
+        return [t for pid in sorted(pages_out)
+                for t in line_texts(P, pages_out[pid])]
+    want_lines = texts({pid: data.encode('utf-8')
+                        for pid, data in glyph['output'].items()})
+    got_lines, per_op_lines = texts(out), texts(out_p)
+    equal = sum(a == b for a, b in zip(got_lines, want_lines))
+    equal_p = sum(a == b for a, b in zip(per_op_lines, want_lines))
+    check(len(got_lines) == len(want_lines) and equal >= equal_p - 2
+          and equal >= len(want_lines) - 2,
+          'bf16 processor: through K3 %d of %d lines equal to the f32 '
+          'golden, on the per-op route %d' % (equal, len(want_lines),
+                                              equal_p))
+    for pid, data in out.items():
+        for line in P.parse_page(data).get_lines():
+            check(' '.join(w.get_text() or '' for w in line.get_words())
+                  == line.get_text(), 'bf16 processor: the words of %s do '
+                  'not give its text' % line.id)
+    report.update(bf16_k3_launches=launched, bf16_iterations=steps.calls,
+                  bf16_rows_per_step=steps.rows,
+                  bf16_k3_lines_equal_to_f32_golden=equal,
+                  bf16_per_op_lines_equal_to_f32_golden=equal_p)
+    print('bf16 processor (glyph level, beam at rejection 0.5 with '
+          'alignments) through K3: %d launches in %d iterations of up to %d '
+          'rows over %d runs; lines equal to the f32 golden: K3 route %d of '
+          '%d, per-op route %d' % (launched, steps.calls, steps.rows,
+                                    reps + 1, equal, len(want_lines),
+                                    equal_p))
+    for got, ref, per_op in zip(got_lines, want_lines, per_op_lines):
+        if got != ref or per_op != ref:
+            print('  K3 route %r, per-op %r, f32 golden %r'
+                  % (got, per_op, ref))
+
+    # (d) the processor server, the model resident on the card
+    server = ProcessorServer(ANNCorrection, '127.0.0.1:0').start()
+    try:
+        root = workspace('served')
+        reply = client_process(server.address, {
+            'workspace': root, 'input_file_grp': grp_in,
+            'output_file_grp': grp_out,
+            'parameter': {'model_file': model,
+                          'textequiv_level': 'glyph'}})
+        check(reply.get('ok'), 'processor server: %s' % reply)
+    finally:
+        server.stop()
+    check(outputs(root) == direct['glyph_beam'], 'the processor server '
+          'wrote other bytes than the direct run')
+    print('processor server on cuda: output byte-equal to the direct run')
+
+    for name, t in times.items():
+        report[name + '_s_per_page'] = t / len(pages)
+        report[name + '_lines_per_s'] = n_lines / t
+    print('processor times (glyph level, %d lines on %d pages, best of 3 '
+          'after a warm-up): %s' % (n_lines, len(pages), json.dumps(
+              {k: '%.4f s/page, %.1f lines/s' % (t / len(pages), n_lines / t)
+               for k, t in times.items()})))
+    return report
+
+
 def beam_batch_launches(torch, s2s, lines):
     """All kernel launches of one beam batch under torch.profiler, and
     the beam's iterations in it."""
@@ -1371,13 +1588,24 @@ def main():
                      + dsk.fused_decode_step_indexed.launches,
                      'decode_step_gathered': dsk.fused_decode_step.launches})
     # K3 in either form: the beam takes the indexed one
-    launches['decode_step'] = dsk.fused_decode_step.launches \
-        + dsk.fused_decode_step_indexed.launches
+    def k3_launches():
+        return dsk.fused_decode_step.launches \
+            + dsk.fused_decode_step_indexed.launches
+
+    launches['decode_step'] = k3_launches()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        processor_report = processor_path(torch, tmp, k3_launches)
+    check(all(fn.launches == 0 for key, fn in wrappers.items()
+              if not key.startswith('decode_step')),
+          'the processor launched another kernel than K3')
+    launches['decode_step'] += k3_launches()
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
           'a kernel of the main paths was not launched: %s' % launches)
     print('train_path: %s' % json.dumps(train_report))
     print('beam_path: %s' % json.dumps(beam_report))
+    print('processor_path: %s' % json.dumps(processor_report))
 
     # 6. times
     # K1 at B=16, T=64 (the serving regime it is dispatched for)

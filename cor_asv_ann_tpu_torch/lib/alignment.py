@@ -1,9 +1,10 @@
 """Sequence alignment, error-rate metrics and streaming aggregation (host).
 
 A copy of the JAX package's ``lib/alignment.py`` (standard library only),
-kept here so the port imports nothing of that package; the native
-edit-distance library of that package is not carried over, so without
-``rapidfuzz`` the distance falls back to pure Python. Re-derivation of the reference alignment/metrics layer
+kept here so the port imports nothing of that package; the edit distance
+goes through the same backends (rapidfuzz, else the port's own copy of
+the native editops library, else pure Python). Re-derivation of the
+reference alignment/metrics layer
 (lib/alignment.py:140-486): a difflib-based pair aligner with explicit gap
 elements and grapheme-cluster recombination, the adjusted-distance metric
 family (NFC/NFKC/Levenshtein/historic_latin with GT levels), confusion
@@ -278,12 +279,18 @@ class Alignment:
         """Raw codepoint edit distance over the max sequence length
         ("Levenshtein-fast", reference alignment.py:281-290).
 
-        Backends in preference order: rapidfuzz (C++), pure Python."""
+        Backends in preference order: rapidfuzz (C++), the first-party
+        native editops library (C++), pure Python."""
         try:
             from rapidfuzz.distance import Levenshtein
             dist = Levenshtein.distance(source_text, target_text)
         except ImportError:  # pragma: no cover
-            dist = _levenshtein(source_text, target_text)
+            from . import native
+            if (native.available() and isinstance(source_text, str)
+                    and isinstance(target_text, str)):
+                dist = native.lev_distance(source_text, target_text)
+            else:
+                dist = _levenshtein(source_text, target_text)
         return dist, max(len(target_text), len(source_text))
 
     def get_adjusted_distance(self, source_text, target_text,

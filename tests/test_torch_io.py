@@ -237,5 +237,10 @@ print(' '.join(names), len(names))
     for name in ('models.train', 'scripts.train', 'ops.lstm_scan_kernel',
                  'utils.h5write', 'lib.alignment', 'utils.prefetch',
                  'utils.synthdata', 'models.beam', 'ops.decode_step_kernel',
-                 'scripts.eval', 'scripts.repl'):
+                 'scripts.eval', 'scripts.repl', 'wrapper.transcode',
+                 'wrapper.base', 'wrapper.server', 'wrapper.ocrd_adapter',
+                 'wrapper.resources', 'wrapper.evaluate', 'wrapper.align',
+                 'wrapper.join', 'wrapper.mark', 'utils.page',
+                 'utils.workspace', 'utils.mets_server', 'lib.native',
+                 'scripts.compare'):
         assert 'cor_asv_ann_tpu_torch.' + name in out.stdout.split(), name
