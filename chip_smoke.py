@@ -26,7 +26,15 @@ and drives the three paths of the port:
   device) against the JAX processor's golden
   (``tests/golden_page_process.json``), the port's evaluate on its
   output, the beam in bfloat16 through the fused decode-step kernel, and
-  the processor server.
+  the processor server;
+- the measurement and tuning surface (``tuning_path``): the fused-decode
+  autotune of the flagship in bfloat16 at B = 16-256 and by default, the
+  decode-loop kernel against the per-op decode through ``correct_lines``
+  at B = 32, 64 and 256, a batch of 300-400-character lines that the
+  kernel must not take, ``proc -f --autotune-fused --torch-trace`` and
+  ``eval --torch-trace`` as modules (the trace must name the kernel), and
+  an LM converted by ``scripts.transfer_dta_lm`` loaded into a d2/w512
+  model that takes two training steps.
 
 It shows that each path launched its kernels, and times the kernels.
 Any failed check raises, so the script exits non-zero. It imports
@@ -1485,6 +1493,249 @@ def processor_path(torch, tmp, k3_launches):
     return report
 
 
+def write_keras_lm(path, voc_size, width, depth, context_dims, seed):
+    """An ocrd_keraslm-shaped language model file, written with the port's
+    h5write (Keras 2's ``save_weights`` layout: ``layer_names`` on the
+    root, ``weight_names`` and ``<layer>/<layer>/<weight>:0`` on each
+    layer group): `depth` LSTMs of `width` units over a one-hot input of
+    voc_size + context_dims, then a dense readout; random weights."""
+    import numpy as np
+    from cor_asv_ann_tpu_torch.utils import h5write
+    rng = np.random.default_rng(seed)
+    lstms = ['lstm_%d' % (i + 1) for i in range(depth)]
+    layers = ['input_1'] + lstms + ['dense_1']
+    weights = {name: [('kernel:0', (voc_size + context_dims if i == 0
+                                    else width, 4 * width)),
+                      ('recurrent_kernel:0', (width, 4 * width)),
+                      ('bias:0', (4 * width,))]
+               for i, name in enumerate(lstms)}
+    weights['dense_1'] = [('kernel:0', (width, voc_size)),
+                          ('bias:0', (voc_size,))]
+    arrays = {}
+    with h5write.File(path, 'w') as f:
+        f.attrs['layer_names'] = np.array([n.encode() for n in layers])
+        f.attrs['backend'] = b'tensorflow'
+        f.attrs['keras_version'] = b'2.2.4'
+        f.create_group('input_1').attrs['weight_names'] = np.array([])
+        for name, ws in weights.items():
+            group = f.create_group(name)
+            group.attrs['weight_names'] = np.array(
+                [('%s/%s' % (name, w)).encode() for w, _ in ws])
+            for w, shape in ws:
+                key = '%s/%s' % (name, w)
+                arrays[key] = (rng.standard_normal(shape) * 0.05).astype(
+                    np.float32)
+                group.create_dataset(key, data=arrays[key])
+    return arrays
+
+
+def tuning_path(torch, dev, corpus, tmp):
+    """The measurement and tuning surface on the flagship in bf16: the
+    fused-decode autotune at B = 16-256 and by default; K1 against the
+    per-op bf16 decode above B = 16 through correct_lines; a batch of long
+    lines (the 384 bucket), which K1 must not take; ``proc -f
+    --autotune-fused --torch-trace`` and ``eval --torch-trace`` as
+    modules; an LM converted by ``transfer_dta_lm`` loaded into a d2/w512
+    model that takes two training steps."""
+    import numpy as np
+    from cor_asv_ann_tpu_torch.models import api
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
+                                                     tree_map)
+    from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
+    from cor_asv_ann_tpu_torch.utils.data import gen_line_batches
+
+    def k1():
+        return dlk.decode_loop.launches
+
+    report = {}
+    bf = load_model(dev, 'bfloat16')
+    # the autotune: a warm-up and `repeats` timed calls of each route at
+    # each batch size, each K1 call one launch per tile of 16 lines
+    batches, repeats = (16, 32, 64, 128, 256), 8
+    before = k1()
+    t0 = time.perf_counter()
+    tuned = bf.autotune_fused_decode(batches=batches, repeats=repeats)
+    tune_s = time.perf_counter() - t0
+    check(tuned is not None, 'autotune_fused_decode declined on the card')
+    check(tuned['chosen'] == api._pick_fused_bound(tuned['ratios']),
+          'autotune window %s is not _pick_fused_bound of its ratios %s'
+          % (tuned['chosen'], tuned['ratios']))
+    tiles = sum(-(-b // 16) for b in batches)
+    tune_launches = k1() - before
+    check(tune_launches == (1 + repeats) * tiles,
+          'autotune: %d K1 launches, %d tiles timed and %d warmed up'
+          % (tune_launches, repeats * tiles, tiles))
+    default = load_model(dev, 'bfloat16').autotune_fused_decode()
+    check(default is not None
+          and default['chosen'] == api._pick_fused_bound(default['ratios']),
+          'default autotune: %s' % default)
+    report['autotune'] = dict(ratios=tuned['ratios'],
+                              window=tuned['chosen'], seconds=tune_s,
+                              k1_launches=tune_launches,
+                              default_ratios=default['ratios'],
+                              default_window=default['chosen'])
+    print('autotune B=%s: ratios (per-op / K1 wall time) %s, window %s, '
+          '%d K1 launches, %.1f s; default B=(16, 32, 64): ratios %s, '
+          'window %s' % (batches, json.dumps(tuned['ratios']),
+                         tuned['chosen'], tune_launches, tune_s,
+                         json.dumps(default['ratios']), default['chosen']))
+
+    # K1 above B = 16 through correct_lines, its window forced open to B,
+    # against the per-op bf16 decode: texts byte-equal, scores within
+    # 5e-3 (phase_k1's bar)
+    for B in (32, 64, 256):
+        lines = (corpus * 3)[:B]
+        bf.fused_decode_min_b, bf.fused_decode_max_b = 1, B
+        bf.fused_decode = True
+        before = k1()
+        out_k, _, sc_k, _ = bf.correct_lines(list(lines),
+                                             return_alignments=False)
+        launched = k1() - before
+        check(launched == -(-B // 16), 'B=%d: %d K1 launches, expected '
+              'one a tile' % (B, launched))
+        bf.fused_decode = False
+        out_p, _, sc_p, _ = bf.correct_lines(list(lines),
+                                             return_alignments=False)
+        check(k1() - before == launched, 'the per-op decode launched K1')
+        check(out_k == out_p, 'K1 at B=%d differs from the plain bf16 '
+              'decode on %d lines' % (B, sum(a != b for a, b in
+                                             zip(out_k, out_p))))
+        d = max(abs(a - b) for a, b in zip(sc_k, sc_p))
+        check(d <= 5e-3, 'K1 at B=%d: scores off the plain bf16 decode by '
+              '%g' % (B, d))
+        lps = {}
+        for route in ('k1', 'per_op', 'k1_2', 'per_op_2'):
+            bf.fused_decode = route.startswith('k1')
+            lps[route] = lines_per_s(torch, bf, lines, reps=1)
+        report['B%d' % B] = dict(k1_launches=launched, max_score_diff=d,
+                                 k1_lines_per_s=(lps['k1'] + lps['k1_2']) / 2,
+                                 per_op_lines_per_s=(lps['per_op']
+                                                     + lps['per_op_2']) / 2)
+        print('K1 at B=%d through correct_lines: %d launches, %d lines '
+              'byte-equal to the per-op bf16 decode, max score diff %.3g; '
+              'lines/s in turns K1 %.1f / %.1f, per-op %.1f / %.1f'
+              % (B, launched, B, d, lps['k1'], lps['k1_2'], lps['per_op'],
+                 lps['per_op_2']))
+    bf.fused_decode = True
+    bf.fused_decode_min_b, bf.fused_decode_max_b = 1, api.FUSED_DECODE_MAX_B
+
+    # 16 lines of 300-400 characters: the 384 bucket, past K1's 256
+    long_lines, pieces = [], [line.rstrip('\n') for line in corpus]
+    i = 0
+    while len(long_lines) < 16:
+        text = ''
+        while len(text) < 300:
+            text = (text + ' ' + pieces[i % len(pieces)]).strip()
+            i += 1
+        long_lines.append(text[:400] + '\n')
+    before = k1()
+    out, _, sc, _ = bf.correct_lines(list(long_lines),
+                                     return_alignments=False)
+    check(k1() == before, 'K1 took the 384 bucket')
+    check(len(out) == 16 and all(np.isfinite(sc)),
+          'long lines: malformed output')
+    lps_long = lines_per_s(torch, bf, long_lines)
+    check(k1() == before, 'K1 took the 384 bucket')
+    report['long_lines'] = dict(lines=16, chars=[min(map(len, long_lines)),
+                                                 max(map(len, long_lines))],
+                                lines_per_s=lps_long, k1_launches=0)
+    print('16 lines of %d-%d characters (the 384 bucket), bf16: no K1 '
+          'launch, %.1f lines/s' % (min(map(len, long_lines)),
+                                    max(map(len, long_lines)), lps_long))
+
+    # proc and eval as modules with a device trace
+    src = os.path.join(tmp, 'page.txt')
+    with open(src, 'w', encoding='utf-8') as f:
+        f.write(''.join(corpus[:16]))
+    trace_dir = os.path.join(tmp, 'trace')
+    outputs = []
+    for suffix, extra in (('.plain.txt', []),
+                          ('.traced.txt', ['--autotune-fused',
+                                           '--torch-trace', trace_dir])):
+        cmd = [sys.executable, '-m', 'cor_asv_ann_tpu_torch.scripts.proc',
+               '-m', FLAGSHIP, '-f', '--compute', 'bfloat16', '-s',
+               suffix] + extra + [src]
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        check(run.returncode == 0, 'proc %s: exit %d: %s'
+              % (extra, run.returncode, run.stderr[-2000:]))
+        with open(os.path.join(tmp, 'page' + suffix), encoding='utf-8') as f:
+            outputs.append(f.read())
+    check(outputs[0] == outputs[1], 'proc --autotune-fused --torch-trace '
+          'wrote other lines than proc without them')
+    traces = [n for n in os.listdir(trace_dir) if n.endswith('.json')]
+    check(len(traces) == 1, 'proc wrote %d traces' % len(traces))
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    k1_events = [e for e in kernels
+                 if 'decode_loop_kernel' in e.get('name', '')]
+    check(k1_events, 'the proc trace names no decode_loop_kernel among its '
+          '%d device kernels' % len(kernels))
+    gt = os.path.join(tmp, 'gt.tsv')
+    with open(gt, 'w', encoding='utf-8') as f:
+        f.write(''.join('%s\t%s\n' % (a.rstrip('\n'), b.rstrip('\n'))
+                        for a, b in zip(corpus[:16],
+                                        outputs[0].splitlines())))
+    eval_trace = os.path.join(tmp, 'eval_trace')
+    run = subprocess.run([sys.executable, '-m',
+                          'cor_asv_ann_tpu_torch.scripts.eval', '-m',
+                          FLAGSHIP, '-f', '--compute', 'bfloat16',
+                          '--torch-trace', eval_trace, gt],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    check(run.returncode == 0 and len(os.listdir(eval_trace)) == 1,
+          'eval --torch-trace: exit %d: %s' % (run.returncode,
+                                               run.stderr[-2000:]))
+    report['trace'] = dict(device_kernels=len(kernels),
+                           decode_loop_kernel_events=len(k1_events),
+                           bytes=os.path.getsize(os.path.join(trace_dir,
+                                                              traces[0])))
+    print('proc -f --compute bfloat16 --autotune-fused --torch-trace: the '
+          'same %d lines as without the flags; its trace holds %d device '
+          'kernels, %d of them decode_loop_kernel; eval --torch-trace: '
+          'exit 0' % (len(outputs[0].splitlines()), len(kernels),
+                      len(k1_events)))
+
+    # an LM through transfer_dta_lm, into a d2/w512 model, two steps
+    data = os.path.join(tmp, 'train.tsv')
+    write_corpus(data, 256)
+    s2s = new_trainer(dev, data, False, None)
+    lm, init = os.path.join(tmp, 'lm.h5'), os.path.join(tmp, 'init.h5')
+    arrays = write_keras_lm(lm, s2s.voc_size, 512, 2, 10, seed=13)
+    run = subprocess.run([sys.executable, '-m',
+                          'cor_asv_ann_tpu_torch.scripts.transfer_dta_lm',
+                          lm, init], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    check(run.returncode == 0, 'transfer_dta_lm: exit %d: %s'
+          % (run.returncode, run.stderr[-2000:]))
+    s2s.load_transfer_weights(init)
+    dec = s2s.params['decoder']
+    check(np.array_equal(dec[0]['recurrent_kernel'],
+                         arrays['lstm_1/recurrent_kernel:0'])
+          and np.array_equal(dec[1]['cell']['kernel'][:512],
+                             arrays['lstm_2/kernel:0']),
+          'the LM did not land in the decoder')
+    sources, confs, targets, _ = next(gen_line_batches(
+        [data], s2s.batch_size, repeat=False))
+    batch = T._vectorize(s2s.mapping, sources, targets, confs, s2s.logger)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      params_from_numpy(s2s.params, dev))
+    opt = T.make_optimizer(params, s2s.learning_rate)
+    gen = torch.Generator().manual_seed(0)
+    losses = [float(T.train_step(params, opt, s2s.config, *batch, gen))
+              for _ in range(2)]
+    check(all(np.isfinite(losses)), 'transfer: losses %s' % losses)
+    report['transfer'] = dict(train_losses=losses,
+                              batch=list(batch[0].shape))
+    print('transfer_dta_lm: d2/w512 LM (input V+10 = %d) into a d2/w512 '
+          'model, two train_steps at B=%d: losses %s'
+          % (s2s.voc_size + 10, batch[0].shape[0],
+             ', '.join('%.4f' % x for x in losses)))
+    return report
+
+
 def beam_batch_launches(torch, s2s, lines):
     """All kernel launches of one beam batch under torch.profiler, and
     the beam's iterations in it."""
@@ -1600,12 +1851,17 @@ def main():
               if not key.startswith('decode_step')),
           'the processor launched another kernel than K3')
     launches['decode_step'] += k3_launches()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tuning_report = tuning_path(torch, dev, corpus, tmp)
+    launches['decode_loop'] += dlk.decode_loop.launches
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
           'a kernel of the main paths was not launched: %s' % launches)
     print('train_path: %s' % json.dumps(train_report))
     print('beam_path: %s' % json.dumps(beam_report))
     print('processor_path: %s' % json.dumps(processor_report))
+    print('tuning_path: %s' % json.dumps(tuning_report))
 
     # 6. times
     # K1 at B=16, T=64 (the serving regime it is dispatched for)

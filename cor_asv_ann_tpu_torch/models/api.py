@@ -9,18 +9,21 @@ tensors on ``self.device``.
 
 Decode batches are padded to power-of-two batch buckets and length
 buckets (utils/data.py:LENGTH_BUCKETS). The dispatch rule of the JAX
-package holds: small bfloat16 greedy batches without alignments go
-through the whole-loop CUDA kernel (ops/decode_loop_kernel.py), long
-buckets through the windowed decoder, the rest through
-``decode_greedy``; without `greedy` a batch goes through the beam search
-with rejection (models/beam.py), whose bounds adapt to a cached greedy
-confidence probe (`_beam_params`). Beam alignments are recorded as
+package holds: bfloat16 greedy batches without alignments whose size
+lies in the fused window (1-16 lines, or what `autotune_fused_decode`
+measured on the card) go through the whole-loop CUDA kernel
+(ops/decode_loop_kernel.py) in buckets up to 256, long buckets through
+the windowed decoder, the rest through ``decode_greedy``; without
+`greedy` a batch goes through the beam search with rejection
+(models/beam.py), whose bounds adapt to a cached greedy confidence probe
+(`_beam_params`). Beam alignments are recorded as
 windowed soft rows and expanded on the host to dense length-T rows
 (`_expand_windowed_alignment`).
 """
 
 import logging
 import math
+import time
 
 import numpy as np
 import torch
@@ -41,8 +44,61 @@ from .seq2seq import decode_greedy, decode_greedy_windowed
 # bucket length from which the windowed-gather decoder is dispatched
 # (the JAX package's rule, kept so both packages decode a bucket alike)
 WINDOWED_DECODE_MIN_T = 128
-# largest batch the whole-loop kernel is dispatched for by default
+# largest batch the whole-loop kernel is dispatched for by default (the
+# JAX package's default; `autotune_fused_decode` measures a window)
 FUSED_DECODE_MAX_B = 16
+
+
+def _pick_fused_bound(ratios, floor=16):
+    """Choose the fused-decode dispatch WINDOW (min_b, max_b) from
+    measured fused/per-op throughput ratios per batch size: the longest
+    contiguous run of measured wins (ratio >= 1.0; ties resolved toward
+    larger batches), so the dispatched regime is >= 1.0x by construction
+    on the measuring device. When the run includes the smallest measured
+    batch and that batch is within `floor`, the window extends down to 1
+    (smaller batches are unmeasured); a measured loss at the small end
+    instead RAISES the window's lower bound, so a day where B=16 loses but
+    B=32-64 win keeps the 32-64 regime fused. No measured wins at all ->
+    (0, 0) (fused dispatch off); no measurements -> the static default
+    window (1, floor). The JAX package's rule, unchanged."""
+    bs = sorted(ratios)
+    if not bs:
+        return 1, floor
+    runs, cur = [], []
+    for b in bs:
+        if ratios[b] >= 1.0:
+            cur.append(b)
+        else:
+            if cur:
+                runs.append(cur)
+            cur = []
+    if cur:
+        runs.append(cur)
+    if not runs:
+        # the sub-floor assumption survives only when nothing at or
+        # below the floor was measured losing
+        return (1, floor) if bs[0] > floor else (0, 0)
+    # prefer the longest run; ties resolve first toward the run that
+    # anchors the stable small-batch regime, then toward larger batches
+    best = max(runs, key=lambda r: (len(r),
+                                    r[0] == bs[0] and r[0] <= floor,
+                                    r[-1]))
+    if best[0] == bs[0] and best[0] <= floor:
+        return 1, max(best[-1], floor)
+    return best[0], best[-1]
+
+
+def _dropped_wins(ratios, window):
+    """The measured winning batch sizes (ratio >= 1.0) that `window`
+    (min_b, max_b) leaves on the per-op decode."""
+    lo, hi = window
+    return [b for b in sorted(ratios) if ratios[b] >= 1.0
+            and not lo <= b <= hi]
+
+
+def _synchronize(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
 
 
 def _pack_results(idx, prob, length, score):
@@ -328,6 +384,65 @@ class Sequence2Sequence:
         self._infer_cache = (key, params)
         return params
 
+    def autotune_fused_decode(self, batches=(16, 32, 64), repeats=8,
+                              t=64):
+        """Measure the whole-loop decode kernel against the per-op greedy
+        decode on this device and set the dispatch window
+        ``fused_decode_min_b``..``fused_decode_max_b`` (`_pick_fused_bound`),
+        so the dispatched fused regime is >= 1.0x by construction on this
+        card rather than a bound carried over from the TPU.
+
+        For each batch size it draws a random (B, t) index batch, calls
+        each route once untimed (the first call of the kernel builds its
+        library), then times `repeats` calls from one synchronize to the
+        next: what a caller of `correct_lines` waits for, host reads
+        included. Costs a few seconds; intended for serving set-up
+        (``scripts/proc.py --autotune-fused``) and benches.
+
+        Returns {'ratios': {B: per-op time / fused time}, 'chosen': (min_b,
+        max_b)}, or None where the fused route does not serve this model
+        (float32 compute, a CPU device, widths or depth it does not take).
+        """
+        if self.compute != 'bfloat16':
+            return None
+        params = self._infer_params()
+        if not fused_greedy_supported(params, self.config, t):
+            return None
+        newline = self.mapping.get('\n')
+        V = self.voc_size
+        rng = np.random.default_rng(11)
+
+        def timed(fn, enc):
+            fn(enc)
+            _synchronize(enc.device)
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                fn(enc)
+            _synchronize(enc.device)
+            return time.perf_counter() - t0
+
+        ratios = {}
+        for b in batches:
+            idx = rng.integers(1, V, size=(b, t)).astype(np.int32)
+            enc = torch.from_numpy(idx).to(self.device)
+            dt_plain = timed(
+                lambda e: decode_greedy(params, self.config, e, newline,
+                                        return_alignments=False), enc)
+            dt_fused = timed(
+                lambda e: decode_greedy_fused(params, self.config, e,
+                                              newline), enc)
+            ratios[int(b)] = round(dt_plain / dt_fused, 3)
+        window = _pick_fused_bound(ratios)
+        self.fused_decode_min_b, self.fused_decode_max_b = window
+        dropped = _dropped_wins(ratios, window)
+        if dropped:
+            self.logger.info('fused-decode autotune: the measured wins at '
+                             'B = %s lie outside the chosen window %s and '
+                             'stay on the per-op decode', dropped, window)
+        result = {'ratios': ratios, 'chosen': window}
+        self.logger.info('fused-decode autotune: %s', result)
+        return result
+
     def correct_lines(self, lines, conf=None, fast=True, greedy=True,
                       return_alignments=True):
         """Correct text strings (reference seq2seq.py:782-842).
@@ -584,7 +699,11 @@ class Sequence2Sequence:
     def predict(self, filenames, fast=False, greedy=False, charmap=None):
         """Apply the model to text files, yielding per batch
         (filenames, corrected lines, scores) — reference seq2seq.py:756-780.
-        Batches are pipelined through `correct_stream`."""
+        Batches are pipelined through `correct_stream`. The final batch
+        is padded with empty lines of no file, as in the reference; only
+        its real lines are decoded (so a short file decodes as a batch of
+        its own size: the whole-loop kernel's regime), and the padding
+        comes back as empty lines of score 0."""
         if self.status != 2:
             raise RuntimeError('load weights before predict')
         assert not fast or greedy, \
@@ -595,12 +714,17 @@ class Sequence2Sequence:
                                           repeat=False, unsupervised=True,
                                           charmap=charmap):
                 lines_source, lines_conf, _, lines_filename = batch
-                yield lines_source, lines_conf, lines_filename
+                n = lines_filename.index(None) if None in lines_filename \
+                    else len(lines_filename)
+                yield (lines_source[:n], lines_conf[:n] if lines_conf
+                       else None, lines_filename)
 
         for fnames, lines_result, _, scores_result, _ in \
                 self.correct_stream(batches(), greedy=greedy,
                                     return_alignments=False):
-            yield (fnames, lines_result, scores_result)
+            pad = len(fnames) - len(lines_result)
+            yield (fnames, lines_result + [''] * pad,
+                   scores_result + [0] * pad)
 
     def evaluate(self, filenames, fast=False, normalization='historic_latin',
                  charmap=None, gt_level=1, confusion=10, histogram=True):

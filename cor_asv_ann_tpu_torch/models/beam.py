@@ -51,8 +51,9 @@ What differs from the JAX package, and why:
 - the ``lax.while_loop`` is a Python loop that reads ``all(done)`` on
   the host once per iteration, and the reverse ``lax.scan`` backtrace a
   loop on the device over the iterations that ran;
-- window positions (t0, the expected position) are float32 in every
-  compute dtype;
+- window positions (t0, the window, the expected position) are float32
+  up to T = 256 in every compute dtype; in bfloat16 beyond it they are
+  bfloat16, as in the JAX package (`_position_dtype`);
 - the decoder step has a second route through the fused CUDA kernel
   K3 (ops/decode_step_kernel.py), see `_BEAM_STEP_KERNEL`, which reads
   the window rows by index instead of gathering them.
@@ -62,7 +63,7 @@ import dataclasses
 
 import torch
 
-from ..ops.attention import NEG, softmax
+from ..ops.attention import BF16_EXACT_T, NEG, softmax
 from ..ops.decode_step_kernel import (fused_decode_step_indexed,
                                       fused_step_supported, pack_weights,
                                       step_covers)
@@ -111,8 +112,19 @@ def _take(x, ix):
     return torch.gather(x, 1, index)
 
 
-def _step_kernel_route(params, config, with_lm):
-    """Whether this step goes through K3 (see `_BEAM_STEP_KERNEL`)."""
+def _position_dtype(dtype, T):
+    """The dtype the beam step computes window positions in: float32,
+    where the bfloat16 grid holds every position of the bucket exactly;
+    beyond that, a low-precision compute dtype itself, as the JAX beam
+    does in every bucket (so past 256 both packages see the same
+    windows)."""
+    return dtype if T > BF16_EXACT_T and dtype.itemsize < 4 else F32
+
+
+def _step_kernel_route(params, config, with_lm, T):
+    """Whether a step over a bucket of T positions goes through K3 (see
+    `_BEAM_STEP_KERNEL`; 'auto' takes bfloat16 buckets up to
+    `BF16_EXACT_T`, whose positions are float32)."""
     if _BEAM_STEP_KERNEL == 'off':
         return False
     if _BEAM_STEP_KERNEL == 'on':
@@ -123,6 +135,7 @@ def _step_kernel_route(params, config, with_lm):
                              'the LM readout only')
         return True
     return (params['char_embedding']['kernel'].dtype == torch.bfloat16
+            and T <= BF16_EXACT_T
             and fused_step_supported(params, config, with_lm))
 
 
@@ -154,13 +167,14 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     WIN = aw.shape[-1]
     dev = attended.device
     # expected previous source position t0 = prev_a . arange + 1
-    offs = torch.arange(WIN, dtype=F32, device=dev)
-    t0 = (aw.to(F32) * (astart[..., None].to(F32) + offs)).sum(dim=-1) + 1.0
+    pdt = _position_dtype(aw.dtype, T)
+    offs = torch.arange(WIN, dtype=pdt, device=dev)
+    t0 = (aw.to(pdt) * (astart[..., None].to(pdt) + offs)).sum(dim=-1) + 1.0
     # new window around t0
     new_start = torch.clamp(torch.floor(t0).long() - ww, 0, max(T - WIN, 0))
     win_ix = torch.clamp(new_start[..., None]
                          + torch.arange(WIN, device=dev), max=T - 1)
-    win_f = win_ix.to(F32)
+    win_f = win_ix.to(pdt)
     visible = torch.abs(t0[..., None] - win_f) <= ww
     if src_lengths is not None:
         visible = visible & (win_ix < src_lengths[:, None, None])
@@ -172,7 +186,7 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     def unflat(x):
         return x.reshape((B, K) + x.shape[1:])
 
-    if _step_kernel_route(params, config, with_lm):
+    if _step_kernel_route(params, config, with_lm, T):
         if step_weights is None:
             step_weights = pack_weights(
                 params, params['char_embedding']['kernel'].dtype)
@@ -180,7 +194,7 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
         probs, h1n, c1n, h2n, c2n, align = fused_decode_step_indexed(
             flat(feedback), flat(h1), flat(c1), flat(h2), flat(c2), u,
             attended, K, flat(new_start), flat(visible), step_weights)
-        exp_pos = (unflat(align) * win_f).sum(dim=-1)
+        exp_pos = (unflat(align).to(pdt) * win_f).sum(dim=-1).to(F32)
         new_states = ((unflat(h1n.to(h1.dtype)), unflat(c1n.to(c1.dtype))),
                       (unflat(h2n.to(h2.dtype)), unflat(c2n.to(c2.dtype))))
         return (unflat(probs), new_states, unflat(align.to(aw.dtype)),
@@ -206,7 +220,7 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     probs, hc = seq2seq.decoder_top_cell(params, config, out, ctx, h_prev,
                                          c_prev, step)
     new_states.append(hc)
-    exp_pos = (a_w.to(F32) * flat(win_f)).sum(dim=-1)
+    exp_pos = (a_w.to(pdt) * flat(win_f)).sum(dim=-1).to(F32)
     result = (unflat(probs),
               tuple((unflat(h), unflat(c)) for h, c in new_states),
               unflat(a_w), new_start, unflat(exp_pos))
@@ -264,7 +278,8 @@ def decode_beam(params, config: Seq2SeqConfig, bp: BeamParams, enc_input,
     len0 = torch.as_tensor(src_len).to(dev).to(F32)                # (B,)
     step_weights = (pack_weights(params,
                                  params['char_embedding']['kernel'].dtype)
-                    if _step_kernel_route(params, config, bp.lm_predict)
+                    if _step_kernel_route(params, config, bp.lm_predict,
+                                          T)
                     else None)
     i32, i64 = torch.int32, torch.int64
 

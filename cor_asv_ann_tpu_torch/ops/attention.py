@@ -19,6 +19,10 @@ import torch
 from .lstm import mm
 
 NEG = -1e30
+# the longest bucket whose window positions 0..T-1 the bfloat16 grid holds
+# exactly (8 bits of mantissa); beyond it the JAX package's bfloat16 steps
+# compare positions rounded to that grid
+BF16_EXACT_T = 256
 
 
 def softmax(x, dim=-1):
@@ -64,7 +68,7 @@ def attention_step_shared(W_a, v_a, b_UW, b_v, h_prev, prev_a, attended, u,
     if not window_width or window_width <= 0 or T <= SW:
         return _attention_step(W_a, v_a, b_UW, b_v, h_prev, prev_a,
                                attended, u, window_width, mask)
-    if T > 256 and prev_a.element_size() < 4:
+    if T > BF16_EXACT_T and prev_a.element_size() < 4:
         # in low precision the dense step compares window positions on
         # the bf16 integer grid, which is exact only up to 256; beyond
         # that the two branches would disagree on visibility

@@ -19,9 +19,10 @@ resident, run their readout, beside the attention of the next step. The
 blocks exchange h1, h2, x, wvec, ctx and the lines' done flags through a
 small scratch buffer and meet at counters, four a step. The launcher
 picks the split from the widths and the card's SM count and shared
-memory (`decode_loop_plan`); T is bounded only where the window centre's
-products stop being exact in float32 (`max_decode_t`). Batches of more
-than 16 lines run as tiles in turn, each one launch.
+memory (`decode_loop_plan`); the kernel bounds T only where the window
+centre's products stop being exact in float32 (`max_decode_t`), serving
+sends it buckets up to T = 256 (`loop_covers`). Batches of more than 16
+lines run as tiles in turn, each one launch.
 
 ``decode_loop_reference`` is the plain twin: a step-by-step PyTorch
 transcription of ``_kernel`` with the same rounding points. The wrapper
@@ -34,7 +35,7 @@ import ctypes
 import torch
 
 from . import _build
-from .attention import NEG, softmax
+from .attention import BF16_EXACT_T, NEG, softmax
 from .lstm import mm
 
 ROWS = 16            # lines of a tile: one launch
@@ -67,19 +68,25 @@ def max_decode_t(width, attended_size, voc_size, window_width, device):
     return plan['max_t'] if plan else 0
 
 
+def loop_covers(config, dtype, T):
+    """Whether the kernel's loop is the serving decoder for this model,
+    weight dtype and bucket: depth 2, no residual connections, a local
+    window, widths in multiples of 8, bfloat16 weights, and T within
+    `BF16_EXACT_T`. Beyond it the JAX package's bfloat16 serving compares
+    window positions rounded to the bfloat16 grid, and the kernel keeps
+    them exact, so those buckets go to the windowed decoder as there."""
+    return (config.depth == 2 and not config.residual_connections
+            and config.window_width > 0
+            and not (config.width % 8 or config.attended_size % 8)
+            and dtype == torch.bfloat16 and T <= BF16_EXACT_T)
+
+
 def fused_greedy_supported(params, config, T):
-    """Whether `decode_greedy_fused` can run this model and bucket: depth
-    2, no residual connections, a local window, bfloat16 weights on a
-    CUDA device, widths in multiples of 8 whose weights the card's SMs
-    hold in their shared memory, and T within `max_decode_t`."""
-    if config.depth != 2 or config.residual_connections:
-        return False
-    if config.window_width <= 0:
-        return False
+    """Whether `decode_greedy_fused` serves this model and bucket:
+    `loop_covers`, weights on a CUDA device whose SMs hold them in their
+    shared memory, and T within `max_decode_t`."""
     emb = params['char_embedding']['kernel']
-    if emb.dtype != torch.bfloat16 or emb.device.type != 'cuda':
-        return False
-    if config.width % 8 or config.attended_size % 8:
+    if not loop_covers(config, emb.dtype, T) or emb.device.type != 'cuda':
         return False
     return T <= max_decode_t(config.width, config.attended_size,
                              config.voc_size, config.window_width,
@@ -97,6 +104,14 @@ def _gates(z, c_prev, W):
     o = torch.sigmoid(z[:, 3 * W:])
     c = f * c_prev.float() + i * g
     return (o * torch.tanh(c)).to(wdt), c.to(wdt)
+
+
+def window_keep(prev_a, steps_f, ww, valid):
+    """The kernel's window test: (B, T) positions within `ww` of the
+    expected position t0 = prev_a . steps + 1, with exact float32
+    positions `steps_f` (1, T), among the `valid` ones."""
+    t0 = (prev_a.float() * steps_f).sum(dim=1, keepdim=True) + 1.0
+    return (torch.abs(t0 - steps_f) <= float(ww)) & valid
 
 
 def decode_loop_reference(attended, u, states, live, enc_mask, weights,
@@ -131,8 +146,7 @@ def decode_loop_reference(attended, u, states, live, enc_mask, weights,
         e_t = torch.tanh((w_vec[:, None, :] + u).float()).to(E.dtype)
         s_en = (torch.matmul(e_t.float(), weights['v_a'].float())[..., 0]
                 + weights['b_v'].float())
-        t0 = (prev_a.float() * steps_f).sum(dim=1, keepdim=True) + 1.0
-        keep = (torch.abs(t0 - steps_f) <= float(ww)) & valid
+        keep = window_keep(prev_a, steps_f, ww, valid)
         s_en = torch.where(keep, s_en, torch.full_like(s_en, NEG))
         a = softmax(s_en, dim=1)
         a = (a * keep.any(dim=1, keepdim=True).to(f32)).to(E.dtype)

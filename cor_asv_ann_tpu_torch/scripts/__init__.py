@@ -1,10 +1,5 @@
 """Command-line entry points of the port."""
 
-import contextlib
-import cProfile
-import pstats
-import sys
-
 import click
 
 # one option text for every CLI that runs a model
@@ -12,23 +7,8 @@ device_option = click.option(
     '--device', default='cuda',
     help='torch device to run on (cuda, cuda:N or cpu)')
 
-
-@contextlib.contextmanager
-def profiled(profile, profile_file):
-    """Run the body under cProfile when `profile` or `profile_file` is
-    set: the stats go to the file, else the 30 costliest calls to
-    stderr."""
-    if not (profile or profile_file):
-        yield
-        return
-    prof = cProfile.Profile()
-    prof.enable()
-    try:
-        yield
-    finally:
-        prof.disable()
-        if profile_file:
-            prof.dump_stats(profile_file)
-        else:
-            pstats.Stats(prof, stream=sys.stderr).sort_stats(
-                'cumulative').print_stats(30)
+# the counterpart of the JAX package's --jax-trace (utils/profiling.py)
+torch_trace_option = click.option(
+    '--torch-trace', default=None, type=click.Path(file_okay=False),
+    help='write a torch.profiler trace of the host and the CUDA device '
+         '(Chrome trace JSON) to this directory')

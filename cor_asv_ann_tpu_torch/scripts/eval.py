@@ -9,7 +9,8 @@ import logging
 
 import click
 
-from . import device_option, profiled
+from ..utils.profiling import maybe_profile
+from . import device_option, torch_trace_option
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -43,13 +44,15 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 @click.option('--profile-file', default=None,
               type=click.Path(dir_okay=False, writable=True),
               help='dump cProfile stats to this file')
+@torch_trace_option
 @click.option('--compute', default='float32',
               type=click.Choice(['float32', 'bfloat16']),
               help='inference compute dtype (float32: exact reference '
                    'numerics)')
 @device_option
 def cli(load_model, fast, rejection, normalization, charmap, gt_level,
-        confusion, histogram, data, profile, profile_file, compute, device):
+        confusion, histogram, data, profile, profile_file, torch_trace,
+        compute, device):
     """Evaluate a correction model on GT files.
 
     Load a sequence-to-sequence model from the given path. Then apply on
@@ -78,7 +81,8 @@ def cli(load_model, fast, rejection, normalization, charmap, gt_level,
     s2s.compute = compute
     if isinstance(charmap, str) and charmap:
         charmap = ast.literal_eval(charmap)
-    with profiled(profile, profile_file):
+    with maybe_profile(profile, profile_file, torch_trace,
+                       logger=logging.getLogger(__name__)):
         s2s.evaluate(list(data), fast=fast,
                      normalization=None if normalization == 'Levenshtein'
                      else normalization,

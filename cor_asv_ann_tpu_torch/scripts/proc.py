@@ -11,7 +11,8 @@ import os
 
 import click
 
-from . import device_option, profiled
+from ..utils.profiling import maybe_profile
+from . import device_option, torch_trace_option
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -39,13 +40,19 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 @click.option('--profile-file', default=None,
               type=click.Path(dir_okay=False, writable=True),
               help='dump cProfile stats to this file')
+@torch_trace_option
 @click.option('--compute', default='float32',
               type=click.Choice(['float32', 'bfloat16']),
               help='inference compute dtype (float32: exact reference '
                    'numerics)')
+@click.option('--autotune-fused', is_flag=True,
+              help='measure fused vs per-op decode on the GPU at serving '
+                   'start and set the fused dispatch bound to the largest '
+                   'winning batch size (bfloat16 only; costs a few seconds '
+                   'once)')
 @device_option
 def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
-        profile, profile_file, compute, device):
+        profile, profile_file, torch_trace, compute, autotune_fused, device):
     """Apply a correction model on GT or text files.
 
     Load a sequence-to-sequence model from the given path. Then open the
@@ -78,6 +85,10 @@ def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
     s2s.load_weights(load_model)
     s2s.rejection_threshold = rejection
     s2s.compute = compute
+    if autotune_fused:
+        tuned = s2s.autotune_fused_decode()
+        if tuned is None:
+            logging.info('fused decode unsupported here; autotune skipped')
     if isinstance(charmap, str) and charmap:
         charmap = ast.literal_eval(charmap)
 
@@ -86,7 +97,8 @@ def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
     done = []
     logging.info('running on %d files', len(data))
     try:
-        with profiled(profile, profile_file):
+        with maybe_profile(profile, profile_file, torch_trace,
+                           logger=logging.getLogger(__name__)):
             for filenames, lines, scores in s2s.predict(
                     list(data), fast=fast, greedy=fast, charmap=charmap):
                 for filename, line in zip(filenames, lines):

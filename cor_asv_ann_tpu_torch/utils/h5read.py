@@ -11,7 +11,10 @@ and variable-length string types. Anything else raises ``ValueError``.
 
 The interface is the part of h5py's that ``utils/io_h5.py`` uses:
 ``File`` (a context manager), ``Group`` (``in``, ``[]``, ``attrs``,
-``visititems``) and ``Dataset`` (``[()]``, ``np.asarray``).
+``visititems``) and ``Dataset`` (``[()]``, ``np.asarray``). Variable-length
+strings read as ``str``, as in h5py; ``attr_charsets`` of a group or
+dataset names the character set each was stored with ('ascii' or
+'utf-8', h5py's encoding of ``bytes`` and ``str``).
 """
 
 import numpy as np
@@ -62,7 +65,7 @@ def _parse_datatype(r, pos):
             return np.dtype(bool), size
         return base, size
     if cls == 9 and (bits[0] & 0x0F) == 1:         # variable-length string
-        return 'vlen_str', size
+        return ('vlen_utf8' if bits[1] & 0x0F else 'vlen_ascii'), size
     raise ValueError('unsupported HDF5 datatype class %d' % cls)
 
 
@@ -150,6 +153,8 @@ class Dataset:
     def __init__(self, r, addr):
         self._r = r
         self.attrs = {}
+        # the character set of each variable-length string attribute
+        self.attr_charsets = {}
         self._dtype = self.shape = self._layout = None
         for mtype, pos, _ in _messages(r, addr):
             if mtype == 0x01:
@@ -162,8 +167,7 @@ class Dataset:
                 raise ValueError('filtered (compressed) HDF5 datasets are '
                                  'not supported')
             elif mtype == 0x0C:
-                name, value = _parse_attribute(r, pos)
-                self.attrs[name] = value
+                _add_attribute(self, r, pos)
 
     def _raw(self):
         r, pos = self._r, self._layout
@@ -208,6 +212,13 @@ class Dataset:
         return arr if dtype is None else arr.astype(dtype)
 
 
+def _add_attribute(obj, r, pos):
+    name, value, dtype = _parse_attribute(r, pos)
+    obj.attrs[name] = value
+    if isinstance(dtype, str):
+        obj.attr_charsets[name] = 'utf-8' if dtype == 'vlen_utf8' else 'ascii'
+
+
 def _parse_attribute(r, pos):
     version = r.buf[pos]
     name_size = r.uint(pos + 2, 2)
@@ -228,17 +239,19 @@ def _parse_attribute(r, pos):
     shape = _parse_dataspace(r, p)
     p += pad(ds_size)
     if shape is None:
-        return name, None
+        return name, None, dtype
     value = _to_array(r, r.buf[p:], dtype, shape)
     if value.ndim == 0 and isinstance(dtype, str):
         value = value[()]
-    return name, value
+    return name, value, dtype
 
 
 class Group:
     def __init__(self, r, addr):
         self._r = r
         self.attrs = {}
+        # the character set of each variable-length string attribute
+        self.attr_charsets = {}
         self._links = {}
         for mtype, pos, _ in _messages(r, addr):
             if mtype == 0x11:                      # symbol table
@@ -248,8 +261,7 @@ class Group:
                 if target is not None:
                     self._links[name] = target
             elif mtype == 0x0C:
-                name, value = _parse_attribute(r, pos)
-                self.attrs[name] = value
+                _add_attribute(self, r, pos)
 
     def _read_symbol_table(self, btree, heap):
         r = self._r

@@ -9,9 +9,9 @@ version-1 B-tree node over symbol-table nodes, one local heap),
 contiguous uncompressed datasets, and attributes. Supported element
 types: little-endian integers and floats, numpy ``bool`` (h5py's
 FALSE/TRUE enum), fixed-length byte strings (``S<n>`` arrays) and, for
-scalar attributes, Python ``bytes``/``str`` as a variable-length string
-in a global heap, which is how h5py stores them. Anything else raises
-``ValueError``.
+scalar attributes, Python ``bytes``/``str`` as a variable-length ASCII /
+UTF-8 string in a global heap, which is how h5py stores them. Anything
+else raises ``ValueError``.
 
 The interface is the part of h5py's that ``utils/io_h5.py`` uses:
 ``File(name, 'w')`` (a context manager; the file is written on close),
@@ -58,9 +58,11 @@ def _datatype(dtype):
     raise ValueError('unsupported dtype %s' % dtype)
 
 
-# variable-length string: a sequence of 1-byte integers tagged as a string
-_VLEN_STR = (struct.pack('<BBBBI', 0x19, 0x01, 0, 0, 16)
-             + struct.pack('<BBBBIHH', 0x10, 0, 0, 0, 1, 0, 8))
+def _vlen_str(charset):
+    """Variable-length string datatype: a sequence of 1-byte integers
+    tagged as a string in `charset` (0 ASCII, 1 UTF-8)."""
+    return (struct.pack('<BBBBI', 0x19, 0x01, charset, 0, 16)
+            + struct.pack('<BBBBIHH', 0x10, 0, 0, 0, 1, 0, 8))
 
 
 def _dataspace(shape):
@@ -171,8 +173,10 @@ class _Writer:
     def _attribute(self, node, name, value):
         name_b = name.encode('utf-8') + b'\0'
         if isinstance(value, (bytes, str)):
-            raw = value if isinstance(value, bytes) else value.encode('utf-8')
-            dtype, space = _VLEN_STR, _dataspace(())
+            # h5py's choice: bytes as ASCII, str as UTF-8
+            utf8 = isinstance(value, str)
+            raw = value.encode('utf-8') if utf8 else value
+            dtype, space = _vlen_str(int(utf8)), _dataspace(())
             # length, address of the collection, index of the object
             data = struct.pack('<IQI', len(raw), 96,
                                self.vlen_index[(id(node), name)])

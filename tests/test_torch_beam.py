@@ -316,10 +316,10 @@ def test_step_kernel_flag():
     tparams = params_from_numpy(params, 'cpu')
     with _route('on'):
         with pytest.raises(ValueError, match='depth 2'):
-            beam._step_kernel_route(tparams, tc, False)
+            beam._step_kernel_route(tparams, tc, False, T)
     params, _, tc = _model(11, depth=2)
     tparams = params_from_numpy(params, 'cpu', torch.bfloat16)
     for mode, want in (('off', False), ('auto', False), ('on', True)):
         with _route(mode):
-            assert beam._step_kernel_route(tparams, tc, False) is want
+            assert beam._step_kernel_route(tparams, tc, False, T) is want
     assert fused_decode_step.launches == 0

@@ -199,14 +199,15 @@ def test_decode_loop_kernel_widest(dev, mask_padding, B):
 def test_decode_loop_kernel_longest_t(dev, mask_padding):
     """The longest bucket `max_decode_t` admits at W = 64 (65,536
     positions; the kernel keeps only the window), 40 steps of 3 lines on
-    random encoder rows and weights."""
+    random encoder rows and weights. Serving sends the kernel buckets up
+    to 256 only (`loop_covers`)."""
     config, params = _k1_params(64, mask_padding)
     pt = params_from_numpy(params, dev, torch.bfloat16)
     W, V, ww = 64, config.voc_size, config.window_width
     T = dlk.max_decode_t(W, config.attended_size, V, ww, dev)
     assert T == 65536
-    assert dlk.fused_greedy_supported(pt, config, T)
-    assert not dlk.fused_greedy_supported(pt, config, T + 1)
+    assert dlk.fused_greedy_supported(pt, config, 256)
+    assert not dlk.fused_greedy_supported(pt, config, 257)
     gen = torch.Generator().manual_seed(3)
     mk = lambda *shape: (torch.randn(*shape, generator=gen) * 0.5).to(
         torch.bfloat16).to(dev)
@@ -240,9 +241,10 @@ def test_decode_loop_kernel_equal_bits(dev):
 
 def test_decode_loop_limits(dev):
     """What `fused_greedy_supported` accepts and the launcher takes: the
-    flagship and every width that is a multiple of 8 up to 768; not W =
-    1024, whose weights the SMs' shared memory does not hold, nor a grid
-    of more blocks than SMs."""
+    flagship and every width that is a multiple of 8 up to 768, with the
+    flagship's `max_decode_t` past 22,600 positions (serving stops at
+    256); not W = 1024, whose weights the SMs' shared memory does not
+    hold, nor a grid of more blocks than SMs."""
     from cor_asv_ann_tpu_torch.models.config import Seq2SeqConfig as C
     emb = {'char_embedding': {'kernel': torch.zeros(
         (45, 8), dtype=torch.bfloat16, device=dev)}}
@@ -250,7 +252,9 @@ def test_decode_loop_limits(dev):
         assert dlk.fused_greedy_supported(emb, C(width=W, depth=2,
                                                  voc_size=45), 64), W
     flagship = C(width=512, depth=2, voc_size=45)
-    assert dlk.fused_greedy_supported(emb, flagship, 22600)
+    assert dlk.max_decode_t(512, 512, 45, 5, dev) >= 22600
+    assert dlk.fused_greedy_supported(emb, flagship, 256)
+    assert not dlk.fused_greedy_supported(emb, flagship, 257)
     assert not dlk.fused_greedy_supported(emb, C(width=1024, depth=2,
                                                  voc_size=45), 64)
     plan = dlk.decode_loop_plan(512, 512, 45, 5)
@@ -281,6 +285,35 @@ def test_fused_dispatch_counts_launches(dev):
     before = lstm_step_fused.launches
     s2s.correct_lines(["abba dig.\n"], return_alignments=False)
     assert lstm_step_fused.launches - before >= 2
+
+
+def test_long_lines_skip_k1_and_k3(dev):
+    """bfloat16 serving sends buckets up to 256 to K1 (greedy) and K3
+    (beam), longer ones to the windowed decoder and the per-op beam step,
+    whose window positions follow the JAX package's there
+    (tests/test_torch_long_lines.py)."""
+    from cor_asv_ann_tpu_torch.models import beam
+    from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
+    from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
+    mapping = CharMapping.from_texts(["abcdefgh .,\n"])
+    s2s = Sequence2Sequence(device=dev)
+    s2s.width, s2s.depth, s2s.mapping = 64, 2, mapping
+    s2s.configure()
+    s2s.status = 2
+    s2s.compute = 'bfloat16'
+    pt = s2s._infer_params()
+    assert beam._step_kernel_route(pt, s2s.config, False, 256)
+    assert not beam._step_kernel_route(pt, s2s.config, False, 257)
+    for chars, bucket, k1 in ((200, 256, 1), (300, 384, 0)):
+        lines = [('abba dig. ' * 40)[:chars] + '\n'] * 2
+        before = dlk.decode_loop.launches
+        out, _, _, _ = s2s.correct_lines(lines, return_alignments=False)
+        assert len(out) == 2
+        assert dlk.decode_loop.launches - before == k1, bucket
+        before = dsk.fused_decode_step_indexed.launches
+        s2s.correct_lines(lines, fast=False, greedy=False,
+                          return_alignments=False)
+        assert (dsk.fused_decode_step_indexed.launches > before) == bool(k1)
 
 
 def _scan_inputs(dev, dtype, T, B, N, seed=0):
@@ -869,4 +902,4 @@ def test_beam_through_the_step_kernel(dev, compute):
         atol=1e-3 if compute == 'float32' else 5e-2)
     # bfloat16 parameters take the kernel under 'auto' as well
     if compute == 'bfloat16':
-        assert beam._step_kernel_route(pt, config, False)
+        assert beam._step_kernel_route(pt, config, False, enc.shape[1])

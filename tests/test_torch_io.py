@@ -242,5 +242,6 @@ print(' '.join(names), len(names))
                  'wrapper.resources', 'wrapper.evaluate', 'wrapper.align',
                  'wrapper.join', 'wrapper.mark', 'utils.page',
                  'utils.workspace', 'utils.mets_server', 'lib.native',
-                 'scripts.compare'):
+                 'scripts.compare', 'utils.profiling',
+                 'scripts.transfer_dta_lm'):
         assert 'cor_asv_ann_tpu_torch.' + name in out.stdout.split(), name
