@@ -34,7 +34,12 @@ and drives the three paths of the port:
   kernel must not take, ``proc -f --autotune-fused --torch-trace`` and
   ``eval --torch-trace`` as modules (the trace must name the kernel), and
   an LM converted by ``scripts.transfer_dta_lm`` loaded into a d2/w512
-  model that takes two training steps.
+  model that takes two training steps;
+- the multi-device layer (``mesh_path``): a world of 1 on NCCL serving
+  the flagship through ``use_mesh()``, a bf16 mesh ``train_step`` through
+  K4-K7 and ``proc --mesh -1``; two ranks sharing the card through gloo,
+  each taking its 128 rows of an f32 and a bf16 ``train_step`` at B = 256
+  and serving the golden lines, held against one process.
 
 It shows that each path launched its kernels, and times the kernels.
 Any failed check raises, so the script exits non-zero. It imports
@@ -1736,6 +1741,140 @@ def tuning_path(torch, dev, corpus, tmp):
     return report
 
 
+def mesh_path(torch, dev, goldens, tmp, width=512, batch_size=256):
+    """The multi-device layer (parallel/mesh.py) on the one card, the
+    port's counterpart of the JAX package's dryrun_multichip:
+
+    (a) a world of 1 on NCCL in this process: use_mesh() f32 greedy and
+        beam serving of the golden lines, byte-equal to the goldens and
+        to serving without a mesh; a bf16 mesh train_step of a d2/w512
+        model without masked padding (K4-K7) at B = 256, T = 64, its loss
+        equal to the unmeshed step's; ``python -m
+        cor_asv_ann_tpu_torch.scripts.proc --mesh -1`` writing what proc
+        without --mesh writes;
+    (b) 2 ranks sharing the card through gloo (NCCL refuses two ranks on
+        one device), spawned after the kernels were built: an f32 and a
+        bf16 train_step of 128 rows a rank against one process's, with
+        each rank's K4-K7 launches, and greedy and beam serving equal to
+        one process's.
+
+    Returns the report; its step times are the ranks' on a shared card,
+    no scaling figure."""
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    import torch_mesh_worker as MW
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
+    from cor_asv_ann_tpu_torch.parallel import mesh as M
+    from cor_asv_ann_tpu_torch.utils.data import gen_line_batches
+    data = os.path.join(tmp, 'train.tsv')
+    write_corpus(data, 768)
+    trainer = Sequence2Sequence(device=dev)
+    trainer.width, trainer.depth, trainer.batch_size = width, 2, batch_size
+    trainer.keras_padding = True
+    trainer.map_files([data])
+    trainer.configure()
+    sources, confs, targets, _ = next(gen_line_batches(
+        [data], batch_size, repeat=False))
+    batch = T._vectorize(trainer.mapping, sources, targets, confs,
+                         trainer.logger)
+    config, params = trainer.config, trainer.params
+    computes = ('float32', 'bfloat16')
+    # launches of one step: the two directions of encoder layer 1,
+    # encoder layer 2 and the lower decoder layer through K4/K5, the top
+    # layer through K6/K7
+    per_step = {'lstm_scan_fwd': 4, 'lstm_scan_bwd': 4, 'teacher_fwd': 1,
+                'teacher_bwd': 1}
+    if dev.type != 'cuda':  # a rehearsal on the CPU launches no kernel
+        per_step = dict.fromkeys(per_step, 0)
+    single = {c: MW.card_step(config, params, batch, c, dev, timed_steps=3)
+              for c in computes}
+    lines = goldens['inputs']
+    served = MW.serve_file(FLAGSHIP, lines, dev)
+    check(served['greedy'] == goldens['greedy']
+          and served['beam'] == goldens['beamed'],
+          'mesh_path: serving without a mesh differs from the goldens')
+    report = {'shape': 'd2/w%d B=%d T=%d Td=%d, dropout %.1f' % (
+        width, *batch[0].shape, batch[1].shape[1], config.dropout)}
+    report['single_step_ms'] = {c: min(single[c]['ms']) for c in computes}
+
+    # (b) 2 ranks on the card through gloo
+    torch.cuda.empty_cache()
+    rank_dev = 'cuda:%d' % (dev.index or 0) if dev.type == 'cuda' else 'cpu'
+    ranks = MW.spawn(2, 'card_world', os.path.join(tmp, 'ranks'), config,
+                     params, batch, computes, 3, (FLAGSHIP, lines), rank_dev)
+    for rank, r in enumerate(ranks):
+        check(r['backend'] == 'gloo' and r['shape'] == {'data': 2,
+                                                        'model': 1},
+              'mesh_path (b): rank %d: %s mesh %s' % (rank, r['backend'],
+                                                      r['shape']))
+        for c in computes:
+            ok, detail = MW.steps_agree(r['steps'][c], single[c], c)
+            check(ok, 'mesh_path (b): rank %d %s step differs from one '
+                  'process\'s: %s' % (rank, c, detail))
+            check(r['steps'][c]['launches'] == per_step,
+                  'mesh_path (b): rank %d %s launches %s, expected %s'
+                  % (rank, c, r['steps'][c]['launches'], per_step))
+            report['gloo2_%s_rank%d' % (c, rank)] = dict(
+                detail, step_ms=min(r['steps'][c]['ms']),
+                launches=r['steps'][c]['launches'])
+        ok, detail = MW.serving_agrees(r['serving'], served)
+        check(ok, 'mesh_path (b): rank %d serving differs from one '
+              'process\'s: %s' % (rank, detail))
+        report['gloo2_serving_rank%d' % rank] = detail
+    print('mesh_path (b): 2 ranks through gloo on %s, f32 and bf16 '
+          'train_step equal to one process\'s, K4-K7 launches per rank %s, '
+          'greedy and beam serving of %d lines equal'
+          % (rank_dev, per_step, len(lines)))
+
+    # (a) a world of 1 on NCCL in this process
+    mesh = M.make_mesh(device=dev)
+    check(mesh.shape == {'data': 1, 'model': 1},
+          'mesh_path (a): mesh %s' % mesh.shape)
+    report['world1_backend'] = dist.get_backend()
+    meshed = MW.serve_file(FLAGSHIP, lines, dev, mesh)
+    ok, detail = MW.serving_agrees(meshed, served)
+    check(ok and meshed['greedy'] == goldens['greedy']
+          and meshed['beam'] == goldens['beamed'],
+          'mesh_path (a): use_mesh() serving differs from serving without '
+          'a mesh or from the goldens: %s' % detail)
+    report['world1_serving'] = detail
+    one = MW.card_step(config, params, batch, 'bfloat16', dev, mesh,
+                       timed_steps=3)
+    ok, detail = MW.steps_agree(one, single['bfloat16'], 'bfloat16')
+    check(ok and one['loss'] == single['bfloat16']['loss'],
+          'mesh_path (a): the bf16 mesh step differs from the unmeshed '
+          'one: %s' % detail)
+    check(one['launches'] == per_step, 'mesh_path (a): launches %s, '
+          'expected %s' % (one['launches'], per_step))
+    report['world1_bfloat16'] = dict(detail, step_ms=min(one['ms']),
+                                     launches=one['launches'])
+    src = os.path.join(tmp, 'golden.txt')
+    with open(src, 'w', encoding='utf-8') as f:
+        f.write(''.join(lines))
+    outputs = []
+    for suffix, extra in (('.plain.txt', []), ('.mesh.txt', ['--mesh',
+                                                             '-1'])):
+        run = subprocess.run(
+            [sys.executable, '-m', 'cor_asv_ann_tpu_torch.scripts.proc',
+             '-m', FLAGSHIP, '-s', suffix, '--device', str(dev)] + extra
+            + [src], cwd=tmp, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=300)
+        check(run.returncode == 0, 'mesh_path (a): proc %s exited with '
+              '%d:\n%s' % (extra, run.returncode, run.stderr[-2000:]))
+        with open(os.path.join(tmp, 'golden' + suffix),
+                  encoding='utf-8') as f:
+            outputs.append(f.read())
+    check(outputs[0] == outputs[1] and 'serving over mesh' in run.stderr,
+          'mesh_path (a): proc --mesh -1 wrote other lines than proc')
+    dist.destroy_process_group()
+    print('mesh_path (a): a world of 1 on %s: use_mesh() greedy and beam '
+          'byte-equal to the goldens, the bf16 mesh step\'s loss equal to '
+          'the unmeshed one (%.6f), launches %s; proc --mesh -1 equal to '
+          'proc' % (report['world1_backend'], one['loss'], one['launches']))
+    return report
+
+
 def beam_batch_launches(torch, s2s, lines):
     """All kernel launches of one beam batch under torch.profiler, and
     the beam's iterations in it."""
@@ -1855,6 +1994,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tuning_report = tuning_path(torch, dev, corpus, tmp)
     launches['decode_loop'] += dlk.decode_loop.launches
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_report = mesh_path(torch, dev, goldens, tmp)
+    # this process's launches and those of the two ranks' first steps
+    for k in train_kernels:
+        launches[k] += wrappers[k].launches + sum(
+            v['launches'][k] for key, v in mesh_report.items()
+            if key.startswith('gloo2_') and 'launches' in v)
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
           'a kernel of the main paths was not launched: %s' % launches)
@@ -1862,6 +2009,16 @@ def main():
     print('beam_path: %s' % json.dumps(beam_report))
     print('processor_path: %s' % json.dumps(processor_report))
     print('tuning_path: %s' % json.dumps(tuning_report))
+    print('mesh_path: %s' % json.dumps(mesh_report))
+    print('mesh_path step ms (%s; the two gloo ranks share this one card, '
+          'so their times are no scaling figure): one process f32 %.1f, '
+          'bf16 %.1f; world of 1 on NCCL bf16 %.1f; 2 ranks through gloo '
+          'f32 %.1f / %.1f, bf16 %.1f / %.1f'
+          % (smi, mesh_report['single_step_ms']['float32'],
+             mesh_report['single_step_ms']['bfloat16'],
+             mesh_report['world1_bfloat16']['step_ms'],
+             *(mesh_report['gloo2_%s_rank%d' % (c, r)]['step_ms']
+               for c in ('float32', 'bfloat16') for r in (0, 1))))
 
     # 6. times
     # K1 at B=16, T=64 (the serving regime it is dispatched for)

@@ -19,6 +19,13 @@ the windowed decoder, the rest through ``decode_greedy``; without
 (`_beam_params`). Beam alignments are recorded as
 windowed soft rows and expanded on the host to dense length-T rows
 (`_expand_windowed_alignment`).
+
+Over several GPUs (`use_mesh`, parallel/mesh.py) every rank runs the
+same calls with the same lines: it decodes its 'data' rows of each
+batch with the full weights, and the results are gathered over 'data',
+so that every rank returns the whole batch's lines, probabilities,
+scores and alignments. The whole-loop kernel stays off under a mesh, as
+in the JAX package; `save` writes on rank 0 only.
 """
 
 import logging
@@ -36,9 +43,10 @@ from ..utils import io_h5
 from ..utils.data import (CharMapping, GAP, gen_line_batches,
                           lines_to_index_batch, scan_files,
                           vectorize_lines)
+from ..parallel.mesh import gather_batch, gather_params, shard_params
 from .beam import BeamParams, decode_beam
 from .config import Seq2SeqConfig, init_params
-from .params import params_from_numpy
+from .params import params_from_numpy, tree_map
 from .seq2seq import decode_greedy, decode_greedy_windowed
 
 # bucket length from which the windowed-gather decoder is dispatched
@@ -183,6 +191,9 @@ class Sequence2Sequence:
         self.config = None
         self.params = None
         self.status = 0
+        # the ('data', 'model') mesh of several GPUs (see use_mesh); None
+        # = this process's device alone
+        self.mesh = None
 
     @property
     def voc_size(self):
@@ -274,6 +285,8 @@ class Sequence2Sequence:
     def save(self, filename):
         if self.status < 2:
             raise RuntimeError('train or load a model before save')
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         self.logger.info('Saving model under "%s"', filename)
         io_h5.save_model(filename, self.params, self.config, self.mapping)
 
@@ -371,18 +384,54 @@ class Sequence2Sequence:
         self.logger.debug('model confidence probe: %.4f', conf)
         return conf
 
+    def use_mesh(self, mesh=None, n_devices=None):
+        """Serve and train over a ('data', 'model') mesh of the ranks of
+        a process group (parallel/mesh.py): batches sharded over 'data',
+        the wide parameter matrices over 'model'. Call it on every rank,
+        with no arguments to span the whole world (`make_mesh`
+        initialises a world of 1 where there is no process group), with
+        `n_devices` (the world's size, or -1), or with a prebuilt mesh.
+        `use_mesh(mesh=False)` reverts to this process's device alone."""
+        if mesh is False:
+            self.mesh = None
+        else:
+            from ..parallel.mesh import make_mesh
+            self.mesh = mesh or make_mesh(n_devices, device=self.device)
+        self._infer_cache = None
+        return self.mesh
+
     def _infer_params(self):
         """Parameters on self.device: float32 masters, or a cached
-        bfloat16 copy when self.compute == 'bfloat16'."""
-        key = (self.params, self.compute)
+        bfloat16 copy when self.compute == 'bfloat16'. Under a mesh they
+        are placed by `shard_params` and gathered back over 'model': a
+        rank serves its rows with the full weights."""
+        key = (self.params, self.compute, self.mesh)
         cached = getattr(self, '_infer_cache', None)
         if cached is not None and cached[0][0] is key[0] \
-                and cached[0][1] == key[1]:
+                and cached[0][1] == key[1] and cached[0][2] is key[2]:
             return cached[1]
         dtype = torch.bfloat16 if self.compute == 'bfloat16' else None
-        params = params_from_numpy(self.params, self.device, dtype)
+        if self.mesh is None:
+            params = params_from_numpy(self.params, self.device, dtype)
+        else:
+            params = gather_params(shard_params(self.params, self.mesh),
+                                   self.params, self.mesh)
+            if dtype is not None:
+                params = tree_map(lambda t: t.to(dtype)
+                                  if t.dtype == torch.float32 else t, params)
         self._infer_cache = (key, params)
         return params
+
+    def _place_batch(self, enc):
+        """A host batch on this rank's device: its 'data' rows under a
+        mesh (all rows where the data axis does not divide the batch).
+        Returns the tensor and the rows (None: all)."""
+        if self.mesh is None:
+            return torch.from_numpy(enc).to(self.device), None
+        rows = self.mesh.local_rows(enc.shape[0])
+        part = enc if rows is None else enc[rows]
+        return torch.from_numpy(np.ascontiguousarray(part)).to(
+            self.device), rows
 
     def autotune_fused_decode(self, batches=(16, 32, 64), repeats=8,
                               t=64):
@@ -544,13 +593,15 @@ class Sequence2Sequence:
             enc = lines_to_index_batch(self.mapping, lines,
                                        logger=self.logger)
         T = enc.shape[1]
-        enc = torch.from_numpy(enc).to(self.device)
+        host_enc = enc
+        enc, rows = self._place_batch(host_enc)
         newline = self.mapping.get('\n')
         params = self._infer_params()
         if not greedy:
             return self._dispatch_beam(lines, conf, enc, T, newline, params,
-                                       return_alignments)
+                                       return_alignments, rows, host_enc)
         if (self.fused_decode and not return_alignments
+                and self.mesh is None
                 and self.fused_decode_min_b <= enc.shape[0]
                 <= self.fused_decode_max_b
                 and fused_greedy_supported(params, self.config, T)):
@@ -569,18 +620,28 @@ class Sequence2Sequence:
             idx, prob, length, score, aligns = decode(
                 params, self.config, enc, newline,
                 return_alignments=return_alignments)
-        return ('greedy', lines, _pack_results(idx, prob, length, score),
-                aligns if return_alignments else None, idx.shape[1])
+        # under a mesh every rank takes the whole batch's results
+        return ('greedy', lines,
+                gather_batch(_pack_results(idx, prob, length, score),
+                             self.mesh, rows),
+                gather_batch(aligns, self.mesh, rows)
+                if return_alignments else None, idx.shape[1])
 
     def _dispatch_beam(self, lines, conf, enc, T, newline, params,
-                       return_alignments):
-        """The beam branch of `_dispatch_batch`."""
-        src_len = np.array(
-            [self._source_length(line, c)
-             for line, c in zip(lines, conf or [None] * len(lines))],
-            np.int32)
-        # adaptive auto bounds: only probe when an auto bound is in play
-        confidence = (self._model_confidence(params, enc, newline)
+                       return_alignments, rows=None, host_enc=None):
+        """The beam branch of `_dispatch_batch`: `enc` holds the rows
+        `rows` of the batch (`_place_batch`), `host_enc` all of them."""
+        local = (zip(lines, conf or [None] * len(lines)) if rows is None
+                 else zip(lines[rows], conf[rows] if conf
+                          else [None] * (rows.stop - rows.start)))
+        src_len = np.array([self._source_length(line, c)
+                            for line, c in local], np.int32)
+        # adaptive auto bounds: only probe when an auto bound is in play;
+        # the probe takes the batch's first lines, on every rank alike
+        probe = (enc if rows is None else
+                 torch.from_numpy(host_enc[:self._CONF_PROBE_B]).to(
+                     self.device))
+        confidence = (self._model_confidence(params, probe, newline)
                       if self.beam_reservoir is None
                       or self.beam_expand is None else None)
         out = decode_beam(params, self.config, self._beam_params(confidence),
@@ -596,8 +657,9 @@ class Sequence2Sequence:
             parts.append(out['align_row'][:, 0].to(f32).flatten(1))
         parts += [out[k][:, :1].to(f32) for k in ('length', 'cum')]
         parts.append(out['count'][:, None].to(f32))
-        return ('beam', lines, torch.cat(parts, dim=1), out['idx'].shape[2],
-                T, return_alignments)
+        return ('beam', lines,
+                gather_batch(torch.cat(parts, dim=1), self.mesh, rows),
+                out['idx'].shape[2], T, return_alignments)
 
     def _finish_batch(self, handle):
         """Fetch a `_dispatch_batch` handle and rebuild host results."""

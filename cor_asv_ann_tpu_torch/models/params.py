@@ -57,6 +57,23 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """The layout of `tree` with `leaves` (in `tree_leaves` order) in
+    place of its own."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            # keys in sorted order, as `tree_leaves` visits them
+            done = {k: rebuild(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [rebuild(v) for v in t]
+        return next(it)
+
+    return rebuild(tree)
+
+
 def tree_map(fn, tree, *rest):
     """Apply `fn` leaf by leaf over trees of one layout; dicts and lists
     are rebuilt, tuples come back as lists."""

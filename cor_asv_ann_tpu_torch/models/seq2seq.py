@@ -65,33 +65,52 @@ _TEACHER_VJP_STACK_BUDGET = 2.5e9
 # `teacher_fused_supported` says so, 'on' forces `teacher_top_fused` (its
 # plain versions on CPU tensors, for tests), 'off' disables them.
 _TEACHER_KERNEL = 'auto'
+# The mesh (parallel/mesh.py) over whose 'data' axis the training batch
+# in flight is sharded, None otherwise: `train_step` under a mesh sets it
+# for its own call (None for a batch the data axis does not divide,
+# which every rank holds whole). The kernels then launch on the rank's
+# rows, and dropout masks are drawn at the global batch size, of which a
+# rank keeps its rows.
+_TRAIN_MESH = None
 
 
 def _train_scan(xs, w, h0=None, c0=None, reverse=False, mask=None):
     """lstm_scan for training-path sequence recurrences: the fused
     whole-sequence scan where it is supported, else the plain scan.
-    Masked scans (mask_padding models' encoders) stay on the plain one."""
+    Masked scans (mask_padding models' encoders) stay on the plain one.
+    Under a training mesh the kernels launch on this rank's rows."""
     if mask is None and _FUSED_TRAIN_SCAN != 'off':
         if _FUSED_TRAIN_SCAN == 'on' or (
-                xs.device.type == 'cuda' and fused_scan_supported(w)):
+                xs.device.type == 'cuda'
+                and fused_scan_supported(w, xs.shape[0], mesh=_TRAIN_MESH)):
             return lstm_scan_fused(xs, w, h0, c0, reverse=reverse)
     return lstm_scan(xs, w, h0, c0, reverse=reverse, mask=mask)
 
 
-def _dropout_keep(shape, rate, generator, device):
+def _dropout_keep(shape, rate, generator, device, batch_dim=None):
     """Bernoulli(1 - rate) keep mask drawn from `generator` (on its own
-    device) and moved to `device`."""
-    return (torch.rand(shape, generator=generator, device=generator.device)
-            < 1.0 - rate).to(device)
+    device) and moved to `device`. `batch_dim` names the batch axis of
+    `shape`: under a training mesh the mask is drawn for the global batch,
+    as one process draws it, and this rank keeps its rows."""
+    mesh = _TRAIN_MESH
+    if mesh is not None and batch_dim is not None:
+        n = shape[batch_dim]
+        shape = list(shape)
+        shape[batch_dim] = n * mesh.shape['data']
+    keep = torch.rand(shape, generator=generator, device=generator.device)
+    if mesh is not None and batch_dim is not None:
+        keep = keep.narrow(batch_dim, mesh.data_index * n, n)
+    return (keep < 1.0 - rate).to(device)
 
 
 def _variational_dropout(out, config, generator):
     """Time-constant dropout on a layer's outputs (seq2seq.py:296-298):
     one mask per sample shared over time; `config.keras_dropout` shares
     it over the batch too, like the reference's noise_shape=(1, dim)."""
-    bdim = 1 if config.keras_dropout else out.shape[0]
-    keep = _dropout_keep((bdim, 1, out.shape[2]), config.dropout,
-                         generator, out.device)
+    shared = config.keras_dropout
+    keep = _dropout_keep((1 if shared else out.shape[0], 1, out.shape[2]),
+                         config.dropout, generator, out.device,
+                         batch_dim=None if shared else 0)
     return torch.where(keep, out / (1.0 - config.dropout),
                        torch.zeros_like(out))
 
@@ -312,7 +331,7 @@ def _decode_teacher(params, config, dec_input, states, attended, u,
     if dropping:
         # per-gate masks on the cell input, constant over time
         masks = (_dropout_keep((4, B, W + A), config.dropout, dropout_rng,
-                               out.device).float()
+                               out.device, batch_dim=1).float()
                  / (1.0 - config.dropout))
     T_enc = attended.shape[1]
     WIN = min(2 * ww + 2, T_enc)
@@ -346,7 +365,8 @@ def _decode_teacher(params, config, dec_input, states, attended, u,
     if train and _TEACHER_KERNEL != 'off' and ww > 0 \
             and enc_mask is None and _TEACHER_ATTENTION != 'dense':
         use_kernel = _TEACHER_KERNEL == 'on' or teacher_fused_supported(
-            top, B, Td, T_enc, W, A, has_enc_mask=False, ww=ww)
+            top, B, Td, T_enc, W, A, has_enc_mask=False, ww=ww,
+            mesh=_TRAIN_MESH)
     if use_kernel:
         out2 = teacher_top_fused(top, out, attended, u, h0, c0, masks, ww)
     elif use_manual_vjp:

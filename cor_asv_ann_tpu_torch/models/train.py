@@ -33,9 +33,20 @@ float32 leaf tensors with ``requires_grad``, the optimizer a
 ``torch.optim.Adam`` over those leaves. Dropout masks come from a
 ``torch.Generator``; the host-side draws (validation split, encoder
 degradation, scheduled sampling) stay with numpy's global generator.
-Training over a device mesh is not ported.
+
+Over a device mesh (``Sequence2Sequence.use_mesh``, parallel/mesh.py) a
+process runs per device and each holds its part: its 'model' slices of
+the parameters and of the Adam moments, its 'data' rows of each batch.
+What GSPMD makes right for the JAX package is done by hand here: the
+loss divides by the global batch's count of weighted positions and
+counts the embedding regularizer once, every gradient is summed over
+'data' once a step before the per-tensor clipnorm (whose norm is the
+full tensor's), dropout masks are the global batch's rows, and every
+rank starts from rank 0's numpy generator, so that the host's draws and
+early stopping come out alike on every rank.
 """
 
+import functools
 import math
 import os
 import pickle
@@ -45,18 +56,34 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import (gather_params, shard_batch, shard_params,
+                             sum_over_data, sync_host_rng)
 from ..utils.data import (gen_line_batches, vectorize_lines,
                           vectorize_lines_indices)
+from . import seq2seq
+from .config import init_params
 from .params import (params_from_numpy, params_to_numpy, tree_leaves,
                      tree_map)
 from .seq2seq import decode_greedy, forward_teacher
 
 
-def clip_per_tensor_norm(grad, max_norm=5.0):
-    """Keras-style `clipnorm`: clip one gradient tensor to max_norm."""
-    norm = torch.sqrt(torch.sum(torch.square(grad)))
+def clip_per_tensor_norm(grad, max_norm=5.0, sq_norm=None):
+    """Keras-style `clipnorm`: clip one gradient tensor to max_norm.
+    `sq_norm` is its squared norm where the caller has it (under a mesh,
+    the full tensor's rather than this rank's slice's)."""
+    if sq_norm is None:
+        sq_norm = torch.sum(torch.square(grad))
+    norm = torch.sqrt(sq_norm)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return grad * scale
+
+
+@functools.lru_cache(maxsize=8)
+def _full_shapes(config):
+    """The parameter tree of `config` as tensors on the 'meta' device:
+    the full shapes that `gather_params` compares a rank's slices with."""
+    return tree_map(lambda a: torch.empty(a.shape, device='meta'),
+                    init_params(config))
 
 
 def make_optimizer(params, learning_rate=1e-3):
@@ -100,12 +127,14 @@ def embedding_regularizer(kernel):
     return underspec + lowrank
 
 
-def weighted_xent(probs, targets, weights):
+def weighted_xent(probs, targets, weights, denom=None):
     """Keras categorical crossentropy with temporal sample weights.
 
     `targets` may be dense one-hot (B, T, V) or compact indices (B, T)
     with -1 at padding (zero weight there anyway); the index form
-    computes the identical -log p of the target character."""
+    computes the identical -log p of the target character. `denom`
+    replaces the batch's count of weighted positions (under a mesh: the
+    global batch's, `_global_count`)."""
     eps = 1e-7
     logp = torch.log(torch.clamp(probs, eps, 1.0))
     if targets.dim() == 2:
@@ -114,18 +143,27 @@ def weighted_xent(probs, targets, weights):
         ll = ll * (targets >= 0)
     else:
         ll = -torch.sum(targets * logp, dim=-1)
-    denom = torch.clamp(torch.sum(weights != 0), min=1)
+    if denom is None:
+        denom = torch.clamp(torch.sum(weights != 0), min=1)
     return torch.sum(ll * weights) / denom
 
 
-def _data_loss(out, dec_out, weights, lm_loss):
+def _data_loss(out, dec_out, weights, lm_loss, denom=None):
     """Crossentropy over a forward_teacher result; with lm_loss, the sum
     of the conditioned and unconditioned passes (seq2seq.py:383-385)."""
     if lm_loss:
         probs, lm_probs = out
-        return (weighted_xent(probs, dec_out, weights)
-                + weighted_xent(lm_probs, dec_out, weights))
-    return weighted_xent(out, dec_out, weights)
+        return (weighted_xent(probs, dec_out, weights, denom)
+                + weighted_xent(lm_probs, dec_out, weights, denom))
+    return weighted_xent(out, dec_out, weights, denom)
+
+
+def _global_count(weights, mesh):
+    """The count of weighted positions of the whole batch whose rows
+    are sharded over the mesh's 'data' axis (one all_reduce), an integer
+    like `weighted_xent`'s own."""
+    count = torch.sum(weights != 0).reshape(1)
+    return torch.clamp(mesh.sum_over(count, 'data')[0], min=1)
 
 
 def _batch_to(device, *arrays):
@@ -133,54 +171,128 @@ def _batch_to(device, *arrays):
 
 
 def loss_fn(params, config, enc, dec_in, dec_out, weights, rng,
-            lm_loss=False):
+            lm_loss=False, mesh=None):
     """Training loss of one batch (tensors on the parameters' device);
-    `rng` is the ``torch.Generator`` of the dropout masks, or None."""
+    `rng` is the ``torch.Generator`` of the dropout masks, or None.
+
+    With `mesh`, the batch is this rank's rows of a batch sharded over
+    its 'data' axis, and the result is this rank's part of the global
+    loss: the data loss of its rows over the global batch's count of
+    weighted positions, plus the embedding regularizer on the first data
+    row only. The parts sum to the global loss, and their gradients to
+    its gradient."""
     out = forward_teacher(params, config, enc, dec_in, dropout_rng=rng,
                           train=True, lm=lm_loss)
-    loss = _data_loss(out, dec_out, weights, lm_loss)
+    if mesh is None:
+        loss = _data_loss(out, dec_out, weights, lm_loss)
+    else:
+        loss = _data_loss(out, dec_out, weights, lm_loss,
+                          _global_count(weights, mesh))
+        if mesh.data_index:
+            return loss
     return loss + embedding_regularizer(params['char_embedding']['kernel'])
 
 
+def _shard_step_batch(mesh, arrays):
+    """This rank's part of a step's batch (`shard_batch`) and the mesh
+    over whose 'data' axis it is sharded, or None where every rank holds
+    the whole batch."""
+    local = shard_batch(arrays, mesh)
+    sharded = mesh.local_rows(len(arrays[0])) is not None
+    return local, (mesh if sharded else None)
+
+
 def train_step(params, optimizer, config, enc, dec_in, dec_out, weights,
-               rng, frozen_mask=None, lm_loss=False, compute_dtype=None):
+               rng, frozen_mask=None, lm_loss=False, compute_dtype=None,
+               mesh=None):
     """One optimizer step, IN PLACE on the float32 leaf tensors of
     `params` and on `optimizer`; returns the loss. With
     compute_dtype='bfloat16' the forward and backward run on bfloat16
     copies of the parameters (float32 masters, gradients cast back to
     float32 — standard mixed precision). The batch may be numpy arrays
-    or tensors, dense or in index form."""
+    or tensors, dense or in index form.
+
+    With `mesh`, `params` and `optimizer` are this rank's
+    (`parallel.mesh.shard_params`), and the batch is the whole batch,
+    the same on every rank: the step takes the rank's rows
+    (`shard_batch`), gathers the full weights over 'model', sums the
+    gradients over 'data' (for a sharded batch), clips each by the full
+    tensor's norm and updates the rank's slices. The loss returned is
+    the global batch's, on every rank."""
     leaves = tree_leaves(params)
-    enc, dec_in, dec_out, weights = _batch_to(
-        leaves[0].device, enc, dec_in, dec_out, weights)
+    data_mesh = None
+    if mesh is None:
+        enc, dec_in, dec_out, weights = _batch_to(
+            leaves[0].device, enc, dec_in, dec_out, weights)
+        used = params
+    else:
+        (enc, dec_in, dec_out, weights), data_mesh = _shard_step_batch(
+            mesh, (enc, dec_in, dec_out, weights))
+        used = params if data_mesh is None else sum_over_data(params, mesh)
+        used = gather_params(used, _full_shapes(config), mesh)
     if compute_dtype == 'bfloat16':
         used = tree_map(lambda a: a.to(torch.bfloat16)
-                        if a.dtype == torch.float32 else a, params)
-    else:
-        used = params
-    loss = loss_fn(used, config, enc, dec_in, dec_out, weights, rng,
-                   lm_loss)
-    grads = torch.autograd.grad(loss, leaves)
+                        if a.dtype == torch.float32 else a, used)
+    old_mesh = seq2seq._TRAIN_MESH
+    if mesh is not None:
+        seq2seq._TRAIN_MESH = data_mesh
+    try:
+        loss = loss_fn(used, config, enc, dec_in, dec_out, weights, rng,
+                       lm_loss, data_mesh)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        seq2seq._TRAIN_MESH = old_mesh
     masks = (tree_leaves(frozen_mask) if frozen_mask is not None
              else [None] * len(leaves))
     with torch.no_grad():
-        for leaf, grad, m in zip(leaves, grads, masks):
-            grad = grad.float()
-            if m is not None:
-                grad = grad * m
-            leaf.grad = clip_per_tensor_norm(grad)
+        grads = [g.float() if m is None else g.float() * m
+                 for g, m in zip(grads, masks)]
+        sq = ([None] * len(grads) if mesh is None
+              else _full_sq_norms(grads, config, mesh))
+        for leaf, grad, s in zip(leaves, grads, sq):
+            leaf.grad = clip_per_tensor_norm(grad, sq_norm=s)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
-    return loss.detach()
+    if data_mesh is None:
+        return loss.detach()
+    return data_mesh.sum_over(loss.detach().float().reshape(1), 'data')[0]
+
+
+def _full_sq_norms(grads, config, mesh):
+    """The squared norm of each full gradient tensor from this rank's
+    slices: summed over 'model' (one all_reduce) for the sharded
+    leaves."""
+    sq = torch.stack([torch.sum(torch.square(g)) for g in grads])
+    full = [tuple(s.shape) for s in tree_leaves(_full_shapes(config))]
+    sharded = torch.tensor([tuple(g.shape) != f for g, f in
+                            zip(grads, full)], device=sq.device)
+    parts = mesh.sum_over(torch.where(sharded, sq, torch.zeros_like(sq)),
+                          'model')
+    return list(torch.where(sharded, parts, sq))
 
 
 @torch.no_grad()
-def eval_step(params, config, enc, dec_in, dec_out, weights, lm_loss=False):
-    enc, dec_in, dec_out, weights = _batch_to(
-        tree_leaves(params)[0].device, enc, dec_in, dec_out, weights)
+def eval_step(params, config, enc, dec_in, dec_out, weights, lm_loss=False,
+              mesh=None):
+    """The evaluation loss of a batch (no dropout, no regularizer).
+    With `mesh`, as in `train_step`: the rank's parameters and the whole
+    batch in, the global batch's loss out, on every rank."""
+    if mesh is None:
+        enc, dec_in, dec_out, weights = _batch_to(
+            tree_leaves(params)[0].device, enc, dec_in, dec_out, weights)
+        return _data_loss(forward_teacher(params, config, enc, dec_in,
+                                          train=False, lm=lm_loss),
+                          dec_out, weights, lm_loss)
+    (enc, dec_in, dec_out, weights), data_mesh = _shard_step_batch(
+        mesh, (enc, dec_in, dec_out, weights))
+    params = gather_params(params, _full_shapes(config), mesh)
     out = forward_teacher(params, config, enc, dec_in, train=False,
                           lm=lm_loss)
-    return _data_loss(out, dec_out, weights, lm_loss)
+    if data_mesh is None:
+        return _data_loss(out, dec_out, weights, lm_loss)
+    loss = _data_loss(out, dec_out, weights, lm_loss,
+                      _global_count(weights, data_mesh))
+    return data_mesh.sum_over(loss.float().reshape(1), 'data')[0]
 
 
 def sample_ratio(schedule, epoch, epochs):
@@ -274,9 +386,20 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
     (reference seq2seq.py:590-649) on `s2s.device`. With `resume=True`,
     continue from the train_state.pkl in `checkpoint_dir` (params,
     optimizer moments, epoch counter and validation split are all
-    restored)."""
+    restored).
+
+    When `s2s.mesh` is set (`use_mesh()`), every rank of the mesh runs
+    this with the same files: batches sharded over 'data', the wide
+    parameter matrices and their Adam moments over 'model' (the
+    optimizer state inherits the parameter shardings). Checkpoints and
+    train_state.pkl are written by rank 0."""
     logger = s2s.logger
     device = resolve_device(s2s.device)
+    mesh = getattr(s2s, 'mesh', None)
+    if mesh is not None:
+        # every rank draws what rank 0 draws (module docstring)
+        sync_host_rng(mesh)
+        logger.info('training over mesh %s', mesh.shape)
     num_lines = s2s.map_files(filenames)
     logger.info('Training on %d files with %d lines', len(filenames),
                 num_lines)
@@ -298,9 +421,28 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
                          'bfloat16)' % (train_compute,))
 
     def to_leaves(tree):
-        return tree_map(lambda t: t.requires_grad_(),
-                        params_from_numpy(tree, device))
+        placed = (params_from_numpy(tree, device) if mesh is None
+                  else shard_params(tree, mesh))
+        return tree_map(lambda t: t.requires_grad_(), placed)
 
+    def to_host(tree):
+        """The full tree as numpy (gathered over 'model' under a mesh,
+        a collective: every rank calls it alike)."""
+        if mesh is not None:
+            with torch.no_grad():
+                tree = gather_params(
+                    tree_map(lambda a: torch.as_tensor(a).to(mesh.device),
+                             tree), _full_shapes(config), mesh)
+        return params_to_numpy(tree)
+
+    def full_params():
+        """The parameters to decode with on the host thread."""
+        if mesh is None:
+            return params
+        with torch.no_grad():
+            return gather_params(params, _full_shapes(config), mesh)
+
+    writer = mesh is None or mesh.rank == 0
     # float32 masters as leaf tensors; train_step updates them in place
     params = to_leaves(s2s.params)
     learning_rate = getattr(s2s, 'learning_rate', 1e-3)
@@ -318,14 +460,14 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
 
     best_loss = np.inf
     # a snapshot on the host: the device tensors change under it
-    best_params = params_to_numpy(params)
+    best_params = to_host(params)
     patience = getattr(s2s, 'patience', 3)  # reference: EarlyStopping(3)
     bad_epochs = 0
     start_epoch = 1
     if resume and checkpoint_dir is not None:
         state = load_train_state(checkpoint_dir)
         if state is not None and not _tree_shapes_match(state['params'],
-                                                        params):
+                                                        s2s.params):
             # a stale train_state.pkl from an unrelated run (different
             # topology/charset) must not be restored — start fresh
             logger.warning('train_state.pkl in %s does not match the '
@@ -333,9 +475,16 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
                            checkpoint_dir)
             state = None
         if state is not None:
+            # re-placed on the mesh: each rank takes its slices of the
+            # parameters and of the moments
             params = to_leaves(state['params'])
             optimizer = make_optimizer(params, learning_rate)
-            load_optimizer_state(optimizer, params, state['opt_state'])
+            opt_state = state['opt_state']
+            if mesh is not None:
+                opt_state = dict(opt_state,
+                                 mu=shard_params(opt_state['mu'], mesh),
+                                 nu=shard_params(opt_state['nu'], mesh))
+            load_optimizer_state(optimizer, params, opt_state)
             best_loss = state['best_loss']
             best_params = state['best_params']
             start_epoch = state['epoch'] + 1
@@ -365,10 +514,11 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
             losses = []
 
             def batch_iter():
-                """Vectorize batches on a host thread (the reference's
-                generator worker processes, keras_train.py:133-150).
-                Scheduled sampling decodes with the parameters as they
-                stand when the batch is prepared."""
+                """Vectorize batches (on a host thread without a mesh:
+                the reference's generator worker processes,
+                keras_train.py:133-150). Scheduled sampling decodes with
+                the parameters as they stand when the batch is
+                prepared."""
                 gen = gen_line_batches(filenames, s2s.batch_size,
                                        repeat=False, split=split,
                                        train=True, is_bad=is_bad)
@@ -380,24 +530,37 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
                         s2s.mapping, sources, targets, confs, logger)
                     if ratio > 0:
                         dec_in = _scheduled_sample(
-                            params, config, s2s.mapping, enc, dec_in,
+                            full_params(), config, s2s.mapping, enc, dec_in,
                             ratio, newline,
                             keras_quirk=getattr(s2s, 'keras_sampling',
                                                 False))
+                    batch = (_degrade_encoder(enc), dec_in, dec_out, w)
                     # device placement on the prefetch thread overlaps
-                    # the host->device copy with the train step
-                    yield _batch_to(device, _degrade_encoder(enc), dec_in,
-                                    dec_out, w)
+                    # the host->device copy with the train step; under a
+                    # mesh train_step takes each rank's rows itself
+                    yield batch if mesh is not None else _batch_to(device,
+                                                                   *batch)
 
-            from ..utils.prefetch import prefetch
-            with prefetch(batch_iter()) as feed:
-                for enc, dec_in, dec_out, w in feed:
-                    loss = train_step(
-                        params, optimizer, config, enc, dec_in, dec_out,
-                        w, rng, frozen_mask=fmask, lm_loss=s2s.lm_loss,
-                        compute_dtype=train_compute)
-                    losses.append(float(loss))
-                    if stop.stopping:
+            def step(batch):
+                loss = train_step(
+                    params, optimizer, config, *batch, rng,
+                    frozen_mask=fmask, lm_loss=s2s.lm_loss,
+                    compute_dtype=train_compute, mesh=mesh)
+                losses.append(float(loss))
+                return stop.stopping
+
+            if mesh is None:
+                from ..utils.prefetch import prefetch
+                with prefetch(batch_iter()) as feed:
+                    for batch in feed:
+                        if step(batch):
+                            break
+            else:
+                # collectives run in one order on every rank, so none
+                # may run on a second host thread (scheduled sampling
+                # gathers the parameters): the batches are made here
+                for batch in batch_iter():
+                    if step(batch):
                         break
             if not losses:
                 logger.critical('training failed: no data')
@@ -417,7 +580,7 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
                     s2s.mapping, sources, targets, confs, logger)
                 val_losses.append(float(eval_step(
                     params, config, enc, dec_in, dec_out, w,
-                    lm_loss=s2s.lm_loss)))
+                    lm_loss=s2s.lm_loss, mesh=mesh)))
             val_loss = float(np.mean(val_losses)) if val_losses else train_loss
             history['loss'].append(train_loss)
             history['val_loss'].append(val_loss)
@@ -427,24 +590,28 @@ def train_model(s2s, filenames, val_filenames=None, checkpoint_dir='.',
             nan_stop = np.isnan(train_loss) or np.isnan(val_loss)
             if not nan_stop and val_loss < best_loss:
                 best_loss = val_loss
-                best_params = params_to_numpy(params)
+                best_params = to_host(params)
                 bad_epochs = 0
             elif not nan_stop:
                 bad_epochs += 1
 
             if checkpoint_dir is not None:
-                try:
-                    from ..utils import io_h5
-                    io_h5.save_model(
-                        '%s/model.ckpt.weights-%02d-%.2f.h5'
-                        % (checkpoint_dir, epoch, val_loss),
-                        params_to_numpy(params), config, s2s.mapping)
-                    save_train_state(
-                        checkpoint_dir, params,
-                        optimizer_state(optimizer, params), epoch,
-                        best_loss, best_params, split)
-                except OSError as err:  # pragma: no cover
-                    logger.warning('cannot checkpoint: %s', err)
+                host_params = to_host(params)
+                opt_state = optimizer_state(optimizer, params)
+                opt_state.update(mu=to_host(opt_state['mu']),
+                                 nu=to_host(opt_state['nu']))
+                if writer:
+                    try:
+                        from ..utils import io_h5
+                        io_h5.save_model(
+                            '%s/model.ckpt.weights-%02d-%.2f.h5'
+                            % (checkpoint_dir, epoch, val_loss),
+                            host_params, config, s2s.mapping)
+                        save_train_state(
+                            checkpoint_dir, host_params, opt_state, epoch,
+                            best_loss, best_params, split)
+                    except OSError as err:  # pragma: no cover
+                        logger.warning('cannot checkpoint: %s', err)
 
             if nan_stop:
                 logger.warning('NaN loss, terminating')

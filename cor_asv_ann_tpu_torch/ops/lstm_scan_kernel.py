@@ -273,22 +273,38 @@ class LstmScan(torch.autograd.Function):
         return dzx, dR, dh0.to(dt), dc0.to(dt), None
 
 
-def fused_scan_supported(w):
+def fused_scan_supported(w, batch=None, mesh=None):
     """Whether `lstm_scan_fused` launches the CUDA kernels for these LSTM
     weights: float32 or bfloat16 on a CUDA device, width a multiple of 8
-    within the kernels' shared-memory scratch. (CPU tensors run the plain
-    versions, which take any shape.)"""
+    within the kernels' shared-memory scratch, and at least one row in
+    `batch` where it is given. (CPU tensors run the plain versions, which
+    take any shape.)
+
+    Under a `mesh` the launch runs per data shard, as in the JAX package,
+    and `batch` counts the rows of the call, which are the rank's own:
+    the port's tensors are local, where the JAX package's test divides a
+    global batch by the data axis."""
     rk = w['recurrent_kernel']
     if rk.device.type != 'cuda' or rk.dtype not in _DTYPE_CODES:
         return False
+    if mesh is not None and rk.device != mesh.device:
+        return False
     N = rk.shape[0]
-    return N % 8 == 0 and N <= lstm_scan_max_width()
+    return (N % 8 == 0 and N <= lstm_scan_max_width()
+            and (batch is None or batch >= 1))
 
 
-def lstm_scan_fused(xs, w, h0=None, c0=None, reverse=False, mask=None):
+def lstm_scan_fused(xs, w, h0=None, c0=None, reverse=False, mask=None,
+                    mesh=None):
     """Drop-in for ``ops.lstm.lstm_scan`` through `LstmScan`: xs (B, T, D)
     -> (outputs (B, T, N), hT, cT). `mask` is unsupported (masked scans
-    stay on ``lstm_scan`` in the caller)."""
+    stay on ``lstm_scan`` in the caller).
+
+    `mesh` is the JAX package's argument: there the launch runs per data
+    shard under ``shard_map``. Here xs, h0 and c0 already are the rank's
+    rows and `w` the full weights (`models.train.train_step` gathers
+    them over 'model' and sums their gradients over 'data' once a step),
+    so the launch is the same with or without it."""
     if mask is not None:
         raise ValueError('lstm_scan_fused takes no mask; use lstm_scan')
     rk = w['recurrent_kernel']

@@ -439,15 +439,33 @@ def teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww):
         masks, int(ww))
 
 
-def teacher_fused_supported(top, B, Td, T, W, A, has_enc_mask, ww=5):
+def teacher_top_fused_sharded(top, xs, attended, u, h0, c0, masks, ww,
+                              mesh):
+    """`teacher_top_fused` per data shard of `mesh`, under the JAX
+    package's name. The port's tensors already are the rank's rows and
+    `top` the full top layer: `models.train.train_step` gathers the
+    weights over 'model' and sums their gradients over 'data' once a
+    step, so the launch is `teacher_top_fused`'s."""
+    return teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww)
+
+
+def teacher_fused_supported(top, B, Td, T, W, A, has_enc_mask, ww=5,
+                            mesh=None):
     """Whether `teacher_top_fused` launches the CUDA kernels for this
     top layer: float32 or bfloat16 weights on a CUDA device, no padding
     mask, a local window (ww >= 1), widths that are multiples of 8. Any
     B, Td and T; the residual and gradient stacks and the sweeps' scratch
     live in device memory. (CPU tensors run the plain versions, which
-    take any shape.)"""
+    take any shape.)
+
+    Under a `mesh` the kernels run per data shard
+    (`teacher_top_fused_sharded`): `B` counts the rows of the call, which
+    are the rank's own (the port's tensors are local), and the weights
+    must live on the mesh's device; `W` and `A` are the full widths."""
     rk = top['cell']['recurrent_kernel']
     if rk.device.type != 'cuda' or rk.dtype not in _DTYPE_CODES:
+        return False
+    if mesh is not None and rk.device != mesh.device:
         return False
     if has_enc_mask or ww < 1 or min(B, Td, T) < 1:
         return False

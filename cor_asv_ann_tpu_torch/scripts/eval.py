@@ -10,7 +10,8 @@ import logging
 import click
 
 from ..utils.profiling import maybe_profile
-from . import device_option, torch_trace_option
+from . import (device_option, end_mesh, mesh_option, rank_device,
+               start_mesh, torch_trace_option)
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -45,6 +46,7 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
               type=click.Path(dir_okay=False, writable=True),
               help='dump cProfile stats to this file')
 @torch_trace_option
+@mesh_option
 @click.option('--compute', default='float32',
               type=click.Choice(['float32', 'bfloat16']),
               help='inference compute dtype (float32: exact reference '
@@ -52,7 +54,7 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 @device_option
 def cli(load_model, fast, rejection, normalization, charmap, gt_level,
         confusion, histogram, data, profile, profile_file, torch_trace,
-        compute, device):
+        mesh_devices, compute, device):
     """Evaluate a correction model on GT files.
 
     Load a sequence-to-sequence model from the given path. Then apply on
@@ -73,12 +75,13 @@ def cli(load_model, fast, rejection, normalization, charmap, gt_level,
         datefmt='%H:%M:%S', level=logging.INFO)
     from ..models.api import Sequence2Sequence
     s2s = Sequence2Sequence(logger=logging.getLogger(__name__),
-                            device=device)
+                            device=rank_device(device))
     s2s.load_config(load_model)
     s2s.configure()
     s2s.load_weights(load_model)
     s2s.rejection_threshold = rejection
     s2s.compute = compute
+    mesh = start_mesh(s2s, mesh_devices, 'serving')
     if isinstance(charmap, str) and charmap:
         charmap = ast.literal_eval(charmap)
     with maybe_profile(profile, profile_file, torch_trace,
@@ -88,6 +91,7 @@ def cli(load_model, fast, rejection, normalization, charmap, gt_level,
                      else normalization,
                      charmap=charmap, gt_level=gt_level,
                      confusion=confusion, histogram=histogram)
+    end_mesh(mesh)
 
 
 if __name__ == '__main__':

@@ -12,7 +12,8 @@ import os
 import click
 
 from ..utils.profiling import maybe_profile
-from . import device_option, torch_trace_option
+from . import (device_option, end_mesh, mesh_option, rank_device,
+               start_mesh, torch_trace_option)
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -41,6 +42,7 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
               type=click.Path(dir_okay=False, writable=True),
               help='dump cProfile stats to this file')
 @torch_trace_option
+@mesh_option
 @click.option('--compute', default='float32',
               type=click.Choice(['float32', 'bfloat16']),
               help='inference compute dtype (float32: exact reference '
@@ -52,7 +54,8 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
                    'once)')
 @device_option
 def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
-        profile, profile_file, torch_trace, compute, autotune_fused, device):
+        profile, profile_file, torch_trace, mesh_devices, compute,
+        autotune_fused, device):
     """Apply a correction model on GT or text files.
 
     Load a sequence-to-sequence model from the given path. Then open the
@@ -73,18 +76,23 @@ def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
     For each input file, open a new output file derived from its file name
     by removing `old_suffix` (or the last extension) and appending
     `new_suffix`. Write the resulting lines to that output file.
+
+    With `--mesh`, run one process per device under ``torchrun``; rank 0
+    writes the output files.
     """
     logging.basicConfig(
         format='%(asctime)s.%(msecs)03d %(levelname)s %(name)s - %(message)s',
         datefmt='%H:%M:%S', level=logging.INFO)
     from ..models.api import Sequence2Sequence
     s2s = Sequence2Sequence(logger=logging.getLogger(__name__),
-                            device=device)
+                            device=rank_device(device))
     s2s.load_config(load_model)
     s2s.configure()
     s2s.load_weights(load_model)
     s2s.rejection_threshold = rejection
     s2s.compute = compute
+    mesh = start_mesh(s2s, mesh_devices, 'serving')
+    writer = mesh is None or mesh.rank == 0
     if autotune_fused:
         tuned = s2s.autotune_fused_decode()
         if tuned is None:
@@ -115,16 +123,19 @@ def cli(load_model, fast, rejection, charmap, old_suffix, new_suffix, data,
                             basename = filename[:-len(old_suffix)]
                         else:
                             basename, ext = os.path.splitext(filename)
-                        logging.info('writing to output file %r',
-                                     basename + new_suffix)
-                        outfile = open(basename + new_suffix, 'w',
-                                       encoding='utf-8')
-                    outfile.write(line)
+                        if writer:
+                            logging.info('writing to output file %r',
+                                         basename + new_suffix)
+                            outfile = open(basename + new_suffix, 'w',
+                                           encoding='utf-8')
+                    if outfile:
+                        outfile.write(line)
     finally:
         # keep the corrected lines of the current file even when a
         # mid-run error aborts the loop
         if outfile and not outfile.closed:
             outfile.close()
+    end_mesh(mesh)
 
 
 if __name__ == '__main__':

@@ -2,8 +2,10 @@
 scripts/train.py:10-97).
 
 Run as ``python -m cor_asv_ann_tpu_torch.scripts.train -m model.h5
-data.tsv``. Trains on one GPU (``--device cpu`` for the CPU); training
-over several devices is not ported.
+data.tsv``. Trains on one GPU (``--device cpu`` for the CPU), or on
+several with ``torchrun --nproc-per-node N -m
+cor_asv_ann_tpu_torch.scripts.train --mesh -1 ...`` (one process per
+device; rank 0 writes the model and the checkpoints).
 """
 
 import logging
@@ -11,7 +13,7 @@ import os
 
 import click
 
-from . import device_option
+from . import device_option, end_mesh, rank_device, start_mesh
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -42,13 +44,16 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
               help='training compute dtype (bfloat16: mixed precision, '
                    'float32 masters)')
 @device_option
+@click.option('--mesh', 'mesh_devices', default=0, type=int,
+              help='train SPMD over a multi-chip (data, model) mesh: '
+                   'number of devices, or -1 for all visible devices')
 @click.option('-v', '--valdata', multiple=True,
               type=click.Path(dir_okay=False, exists=True),
               help='file to use for validation (instead of random split)')
 @click.argument('data', nargs=-1, type=click.Path(dir_okay=False,
                                                   exists=True))
 def cli(save_model, load_model, init_model, reset_encoder, resume, width,
-        depth, compute, device, valdata, data):
+        depth, compute, device, mesh_devices, valdata, data):
     """Train a correction model on GT files.
 
     Configure a sequence-to-sequence model with the given parameters.
@@ -84,7 +89,7 @@ def cli(save_model, load_model, init_model, reset_encoder, resume, width,
 
     from ..models.api import Sequence2Sequence
     s2s = Sequence2Sequence(logger=logging.getLogger(__name__),
-                            device=device)
+                            device=rank_device(device))
     s2s.width = width
     s2s.depth = depth
     if compute:
@@ -117,11 +122,17 @@ def cli(save_model, load_model, init_model, reset_encoder, resume, width,
         s2s.configure()
         s2s.load_transfer_weights(init_model)
 
+    mesh = start_mesh(s2s, mesh_devices, 'training')
     if reset_encoder:
-        # keep only decoder weights (e.g. from an LM) as initialization
+        # keep only decoder weights (e.g. from an LM) as initialization;
+        # under a mesh every rank takes rank 0's seed
         from ..models.config import init_params
-        fresh = init_params(s2s.config, seed=int.from_bytes(os.urandom(2),
-                                                            'little'))
+        seed = int.from_bytes(os.urandom(2), 'little')
+        if mesh is not None:
+            import torch
+            seed = int(mesh.broadcast(torch.tensor([seed],
+                                                   device=mesh.device)))
+        fresh = init_params(s2s.config, seed=seed)
         s2s.params['encoder'] = fresh['encoder']
         s2s.params['attention_dense'] = fresh['attention_dense']
 
@@ -131,6 +142,7 @@ def cli(save_model, load_model, init_model, reset_encoder, resume, width,
               checkpoint_dir=os.path.dirname(os.path.abspath(save_model)))
     if s2s.status > 1:
         s2s.save(save_model)
+    end_mesh(mesh)
 
 
 if __name__ == '__main__':

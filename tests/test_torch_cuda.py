@@ -903,3 +903,53 @@ def test_beam_through_the_step_kernel(dev, compute):
     # bfloat16 parameters take the kernel under 'auto' as well
     if compute == 'bfloat16':
         assert beam._step_kernel_route(pt, config, False, enc.shape[1])
+
+
+# the multi-device layer on one card (tests/torch_mesh_worker.py): a
+# d2/w512 model without masked padding, so one train_step launches each
+# scan kernel 4 times and each teacher kernel once
+MESH_STEP_LAUNCHES = {'lstm_scan_fwd': 4, 'lstm_scan_bwd': 4,
+                      'teacher_fwd': 1, 'teacher_bwd': 1}
+
+
+def test_mesh_train_step_world_of_one_nccl(dev):
+    """A world of 1 on NCCL (`make_mesh` initialises it): the bf16 mesh
+    train_step launches K4-K7 as the step without a mesh does, with the
+    same loss and, at the port's bf16 bar, the same parameters."""
+    import torch.distributed as dist
+    import torch_mesh_worker as MW
+    from cor_asv_ann_tpu_torch.parallel import mesh as M
+    config, params, batch = MW.card_case()
+    want = MW.card_step(config, params, batch, 'bfloat16', dev)
+    mesh = M.make_mesh(device=dev)
+    try:
+        assert dist.get_backend() == 'nccl'
+        assert mesh.shape == {'data': 1, 'model': 1}
+        got = MW.card_step(config, params, batch, 'bfloat16', dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got['launches'] == want['launches'] == MESH_STEP_LAUNCHES
+    assert got['loss'] == want['loss']
+    ok, detail = MW.steps_agree(got, want, 'bfloat16')
+    assert ok, detail
+
+
+def test_mesh_train_step_two_ranks_share_one_card(dev, tmp_path):
+    """Two ranks on cuda:0 through gloo, each with its 16 rows of the
+    32-line batch: f32 and bf16 steps equal to one process's, each rank
+    launching K4-K7."""
+    import torch_mesh_worker as MW
+    from cor_asv_ann_tpu_torch.ops import _build
+    _build.library()  # once, before the ranks start
+    config, params, batch = MW.card_case()
+    computes = ('float32', 'bfloat16')
+    want = {c: MW.card_step(config, params, batch, c, dev) for c in computes}
+    ranks = MW.spawn(2, 'card_world', tmp_path, config, params, batch,
+                     computes, 0, None, 'cuda:0')
+    for r in ranks:
+        assert r['backend'] == 'gloo' and r['shape'] == {'data': 2,
+                                                         'model': 1}
+        for c in computes:
+            assert r['steps'][c]['launches'] == MESH_STEP_LAUNCHES
+            ok, detail = MW.steps_agree(r['steps'][c], want[c], c)
+            assert ok, (c, detail)
