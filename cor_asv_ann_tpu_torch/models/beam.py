@@ -51,9 +51,6 @@ What differs from the JAX package, and why:
 - the ``lax.while_loop`` is a Python loop that reads ``all(done)`` on
   the host once per iteration, and the reverse ``lax.scan`` backtrace a
   loop on the device over the iterations that ran;
-- window positions (t0, the window, the expected position) are float32
-  up to T = 256 in every compute dtype; in bfloat16 beyond it they are
-  bfloat16, as in the JAX package (`_position_dtype`);
 - the decoder step has a second route through the fused CUDA kernel
   K3 (ops/decode_step_kernel.py), see `_BEAM_STEP_KERNEL`, which reads
   the window rows by index instead of gathering them.
@@ -63,7 +60,7 @@ import dataclasses
 
 import torch
 
-from ..ops.attention import BF16_EXACT_T, NEG, softmax
+from ..ops.attention import NEG, softmax
 from ..ops.decode_step_kernel import (fused_decode_step_indexed,
                                       fused_step_supported, pack_weights,
                                       step_covers)
@@ -112,19 +109,10 @@ def _take(x, ix):
     return torch.gather(x, 1, index)
 
 
-def _position_dtype(dtype, T):
-    """The dtype the beam step computes window positions in: float32,
-    where the bfloat16 grid holds every position of the bucket exactly;
-    beyond that, a low-precision compute dtype itself, as the JAX beam
-    does in every bucket (so past 256 both packages see the same
-    windows)."""
-    return dtype if T > BF16_EXACT_T and dtype.itemsize < 4 else F32
-
-
-def _step_kernel_route(params, config, with_lm, T):
-    """Whether a step over a bucket of T positions goes through K3 (see
-    `_BEAM_STEP_KERNEL`; 'auto' takes bfloat16 buckets up to
-    `BF16_EXACT_T`, whose positions are float32)."""
+def _step_kernel_route(params, config, with_lm):
+    """Whether a step goes through K3 (see `_BEAM_STEP_KERNEL`; 'auto'
+    takes bfloat16 buckets of every length, since the window positions
+    that K3 receives are computed outside it)."""
     if _BEAM_STEP_KERNEL == 'off':
         return False
     if _BEAM_STEP_KERNEL == 'on':
@@ -135,7 +123,6 @@ def _step_kernel_route(params, config, with_lm, T):
                              'the LM readout only')
         return True
     return (params['char_embedding']['kernel'].dtype == torch.bfloat16
-            and T <= BF16_EXACT_T
             and fused_step_supported(params, config, with_lm))
 
 
@@ -166,10 +153,12 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     T = attended.shape[1]
     WIN = aw.shape[-1]
     dev = attended.device
-    # expected previous source position t0 = prev_a . arange + 1
-    pdt = _position_dtype(aw.dtype, T)
+    # expected previous source position t0 = prev_a . arange + 1, in the
+    # compute dtype, as the JAX beam computes it (bfloat16 rounding moves
+    # window edges off float32's in every bucket)
+    pdt = aw.dtype
     offs = torch.arange(WIN, dtype=pdt, device=dev)
-    t0 = (aw.to(pdt) * (astart[..., None].to(pdt) + offs)).sum(dim=-1) + 1.0
+    t0 = (aw * (astart[..., None].to(pdt) + offs)).sum(dim=-1) + 1.0
     # new window around t0
     new_start = torch.clamp(torch.floor(t0).long() - ww, 0, max(T - WIN, 0))
     win_ix = torch.clamp(new_start[..., None]
@@ -186,7 +175,7 @@ def beam_decoder_step(params, config, feedback, layer_states, aw, astart,
     def unflat(x):
         return x.reshape((B, K) + x.shape[1:])
 
-    if _step_kernel_route(params, config, with_lm, T):
+    if _step_kernel_route(params, config, with_lm):
         if step_weights is None:
             step_weights = pack_weights(
                 params, params['char_embedding']['kernel'].dtype)
@@ -278,8 +267,7 @@ def decode_beam(params, config: Seq2SeqConfig, bp: BeamParams, enc_input,
     len0 = torch.as_tensor(src_len).to(dev).to(F32)                # (B,)
     step_weights = (pack_weights(params,
                                  params['char_embedding']['kernel'].dtype)
-                    if _step_kernel_route(params, config, bp.lm_predict,
-                                          T)
+                    if _step_kernel_route(params, config, bp.lm_predict)
                     else None)
     i32, i64 = torch.int32, torch.int64
 

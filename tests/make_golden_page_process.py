@@ -13,7 +13,9 @@ Word and Glyph elements, seeded confidences, a few glyphs with a second
 alternative). The golden holds the input PAGE-XML, the JAX processor's
 output for each case (float32, the processor's defaults otherwise) and
 the JAX ``ocrd-cor-asv-ann-evaluate`` report of the glyph-level beam
-output against the input.
+output against the input, and the line texts of the glyph-level beam
+in bfloat16 (the port's bfloat16 beam is held by how many of its lines
+equal the float32 golden's, against how many of these do).
 """
 
 import json
@@ -42,7 +44,7 @@ def main():
     from cor_asv_ann_tpu.utils.workspace import make_workspace
     from cor_asv_ann_tpu.wrapper.evaluate import EvaluateLines
     from cor_asv_ann_tpu.wrapper.transcode import ANNCorrection
-    from torch_wrapper_pages import build_page, write_workspace
+    from torch_wrapper_pages import build_page, line_texts, write_workspace
 
     with open(os.path.join(HERE, 'golden_decodes.json')) as f:
         lines = [line.rstrip('\n') for line in json.load(f)['inputs']]
@@ -72,6 +74,17 @@ def main():
                 golden['evaluate'] = {'case': name,
                                       'input_file_grp': 'OCR,COR',
                                       'report': ev.report}
+        ws = write_workspace(make_workspace, os.path.join(tmp, 'bf16'),
+                             pages)
+        proc = ANNCorrection(parameter=dict(
+            CASES['glyph_beam'], model_file=os.path.join(ROOT, MODEL)))
+        proc.s2s.compute = 'bfloat16'
+        proc.process_workspace(ws, ['OCR'], 'COR')
+        texts = []
+        for _, f in sorted(ws.page_files('COR').items()):
+            with open(f.path, 'rb') as fh:
+                texts += line_texts(P, fh.read())
+        golden['glyph_beam_bfloat16_lines'] = texts
     with open(os.path.join(HERE, 'golden_page_process.json'), 'w',
               encoding='utf-8') as f:
         json.dump(golden, f, indent=1, ensure_ascii=False)

@@ -287,11 +287,12 @@ def test_fused_dispatch_counts_launches(dev):
     assert lstm_step_fused.launches - before >= 2
 
 
-def test_long_lines_skip_k1_and_k3(dev):
-    """bfloat16 serving sends buckets up to 256 to K1 (greedy) and K3
-    (beam), longer ones to the windowed decoder and the per-op beam step,
-    whose window positions follow the JAX package's there
-    (tests/test_torch_long_lines.py)."""
+def test_long_lines_skip_k1_take_k3(dev, monkeypatch):
+    """bfloat16 greedy serving sends buckets up to 256 to K1 and longer
+    ones to the windowed decoder; the bfloat16 beam steps through K3 in
+    every bucket, since its window positions, which follow the JAX
+    package's (tests/test_torch_long_lines.py), are computed outside
+    K3: one launch an iteration at the 256 and the 384 bucket."""
     from cor_asv_ann_tpu_torch.models import beam
     from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
     from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
@@ -302,8 +303,11 @@ def test_long_lines_skip_k1_and_k3(dev):
     s2s.status = 2
     s2s.compute = 'bfloat16'
     pt = s2s._infer_params()
-    assert beam._step_kernel_route(pt, s2s.config, False, 256)
-    assert not beam._step_kernel_route(pt, s2s.config, False, 257)
+    assert beam._step_kernel_route(pt, s2s.config, False)
+    step = beam.beam_decoder_step
+    iterations = []
+    monkeypatch.setattr(beam, 'beam_decoder_step', lambda *a, **kw:
+                        iterations.append(1) or step(*a, **kw))
     for chars, bucket, k1 in ((200, 256, 1), (300, 384, 0)):
         lines = [('abba dig. ' * 40)[:chars] + '\n'] * 2
         before = dlk.decode_loop.launches
@@ -311,9 +315,12 @@ def test_long_lines_skip_k1_and_k3(dev):
         assert len(out) == 2
         assert dlk.decode_loop.launches - before == k1, bucket
         before = dsk.fused_decode_step_indexed.launches
-        s2s.correct_lines(lines, fast=False, greedy=False,
-                          return_alignments=False)
-        assert (dsk.fused_decode_step_indexed.launches > before) == bool(k1)
+        del iterations[:]
+        out, _, _, _ = s2s.correct_lines(lines, fast=False, greedy=False,
+                                         return_alignments=False)
+        assert len(out) == 2 and all(o.endswith('\n') for o in out)
+        launched = dsk.fused_decode_step_indexed.launches - before
+        assert launched == len(iterations) > 0, bucket
 
 
 def _scan_inputs(dev, dtype, T, B, N, seed=0):
@@ -902,7 +909,7 @@ def test_beam_through_the_step_kernel(dev, compute):
         atol=1e-3 if compute == 'float32' else 5e-2)
     # bfloat16 parameters take the kernel under 'auto' as well
     if compute == 'bfloat16':
-        assert beam._step_kernel_route(pt, config, False, enc.shape[1])
+        assert beam._step_kernel_route(pt, config, False)
 
 
 # the multi-device layer on one card (tests/torch_mesh_worker.py): a

@@ -1,22 +1,22 @@
-"""PyTorch port: bfloat16 window positions past T = 256, against the JAX
-package.
+"""PyTorch port: bfloat16 window positions, against the JAX package.
 
 bfloat16 holds every integer up to 256 exactly and only every second one
 up to 512. The JAX package's dense bfloat16 attention step
 (``ops/attention.py:_attention_step``) compares window positions on that
 grid, and its beam step (``models/beam.py:beam_decoder_step``) computes
-the expected position and the window in bfloat16 too; the port's
-whole-loop kernel K1 (``decode_loop_reference``'s `window_keep`) keeps
-positions exact in float32. So past 256 the two see other windows:
+t0, the window and the expected position in bfloat16 in every bucket;
+the port's whole-loop kernel K1 (``decode_loop_reference``'s
+`window_keep`) keeps positions exact in float32. So:
 
 - the dense step and K1's window test part where t0 > 256 and agree up
   to 256, which is why serving sends K1 buckets up to 256 only
   (`loop_covers`), and longer ones to the windowed decoder, as the JAX
   package does;
-- the port's beam step computes positions in bfloat16 past 256
-  (`_position_dtype`) and then finds the JAX step's windows, starts and
-  expected positions exactly, where float32 positions would not; K3 takes
-  bfloat16 buckets up to 256 only.
+- the port's beam step computes positions in the compute dtype, and
+  then finds the JAX step's windows, starts and expected positions
+  exactly in every bucket, where float32 positions would not (t0
+  itself rounds to bfloat16); K3 receives those positions, so it steps
+  bfloat16 beams of every length.
 
 The dispatch is checked on the CPU with the card's support predicates
 patched to hold (their card halves are in tests/test_torch_cuda.py), and
@@ -122,17 +122,19 @@ def test_dense_step_and_k1_agree_up_to_256():
     np.testing.assert_array_equal(port_vis, k1_vis)
 
 
-@pytest.mark.parametrize('seed', [0, 1, 2])
-def test_beam_step_positions_past_256(seed):
-    """The beam's per-op step at T = 384 in bfloat16 against the JAX
-    step: equal window starts and visible positions, equal expected
+def _beam_step_positions(T, seed):
+    """The beam's per-op step in bfloat16 against the JAX step at a
+    bucket of T positions, B = 8 lines of K = 4 hypotheses on the same
+    numpy-seeded inputs, window starts drawn in the upper part of the
+    bucket: equal window starts and visible positions, equal expected
     positions (both bfloat16, exactly); float32 positions would start
-    other windows."""
-    T, B, K = 384, 4, 3
+    other windows on some rows."""
+    B, K = 8, 4
     WIN = 2 * WW + 2
     rng = np.random.default_rng(seed)
     params = _params()
-    astart = rng.integers(250, T - WIN, size=(B, K)).astype(np.int32)
+    astart = rng.integers(T // 2 if T <= 256 else 250, T - WIN,
+                          size=(B, K)).astype(np.int32)
     aw = rng.random((B, K, WIN)).astype(np.float32) ** 4
     aw /= aw.sum(axis=-1, keepdims=True)
     arrays = [rng.random((B, K, V)), aw,
@@ -164,24 +166,55 @@ def test_beam_step_positions_past_256(seed):
                          + torch.arange(WIN))).sum(dim=-1) + 1.0
     start_f32 = torch.clamp(torch.floor(t0).long() - WW, 0, T - WIN)
     assert (start_f32.numpy() != np.asarray(want[3])).any()
-    assert beam._position_dtype(BF, 384) == BF
-    assert beam._position_dtype(BF, 256) == torch.float32
-    assert beam._position_dtype(torch.float32, 384) == torch.float32
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+@pytest.mark.parametrize('T', [32, 64, 128, 256])
+def test_beam_step_positions_up_to_256(T, seed):
+    """bfloat16 holds every integer up to 256, but t0 itself is rounded
+    to bfloat16 (its ulp is 0.25 from 32, 1 from 128): the JAX step's
+    windows follow that rounding in every bucket, and so do the port's."""
+    _beam_step_positions(T, seed)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_beam_step_positions_past_256(seed):
+    _beam_step_positions(384, seed)
 
 
 def test_dispatch_bound_at_256(monkeypatch):
-    """K1 serves bfloat16 buckets up to 256 and K3 steps bfloat16 beams
-    up to 256 (their card-side support patched to hold on the CPU)."""
+    """K1 serves bfloat16 buckets up to 256; K3 steps bfloat16 beams of
+    every length, 257 and 512 included, and float32 ones not (their
+    card-side support patched to hold on the CPU, where the step runs
+    K3's plain version)."""
     tc = Seq2SeqConfig(width=W, depth=2, voc_size=V)
     assert dlk.loop_covers(tc, BF, 256)
     assert not dlk.loop_covers(tc, BF, 257)
     assert not dlk.loop_covers(tc, torch.float32, 64)
     monkeypatch.setattr(beam, 'fused_step_supported', lambda *a: True)
-    bf16 = params_from_numpy(_params(), 'cpu', BF)
-    f32 = params_from_numpy(_params(), 'cpu')
-    assert beam._step_kernel_route(bf16, tc, False, 256)
-    assert not beam._step_kernel_route(bf16, tc, False, 257)
-    assert not beam._step_kernel_route(f32, tc, False, 64)
+    calls = []
+    k3 = beam.fused_decode_step_indexed
+    monkeypatch.setattr(beam, 'fused_decode_step_indexed',
+                        lambda *a, **kw: calls.append(a[5].shape[1])
+                        or k3(*a, **kw))
+    rng = np.random.default_rng(0)
+    WIN, B, K = 2 * WW + 2, 2, 3
+    for T, dtype, k3_steps in ((257, BF, [257]), (512, BF, [512]),
+                               (64, torch.float32, [])):
+        params = params_from_numpy(_params(), 'cpu', dtype)
+        assert beam._step_kernel_route(params, tc, False) == bool(k3_steps)
+        aw = torch.full((B, K, WIN), 1.0 / WIN, dtype=dtype)
+        astart = torch.from_numpy(
+            rng.integers(0, T - WIN, size=(B, K)).astype(np.int32))
+        states = [(torch.zeros(B, K, W, dtype=dtype),) * 2] * 2
+        enc = [torch.from_numpy(rng.standard_normal((B, T, W))).to(dtype)
+               for _ in range(2)]
+        del calls[:]
+        out = beam.beam_decoder_step(params, tc, torch.zeros(B, K, V,
+                                                             dtype=dtype),
+                                     states, aw, astart, *enc)
+        assert calls == k3_steps
+        assert out[0].shape == (B, K, V)
 
 
 def _pair(seed=11):
