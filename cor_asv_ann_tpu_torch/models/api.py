@@ -39,7 +39,7 @@ from .. import resolve_device
 from ..lib.alignment import Alignment, Edits, splitwords
 from ..ops.decode_loop_kernel import (decode_greedy_fused,
                                       fused_greedy_supported)
-from ..utils import io_h5
+from ..utils import io_h5, profiling
 from ..utils.data import (CharMapping, GAP, gen_line_batches,
                           lines_to_index_batch, scan_files,
                           vectorize_lines)
@@ -374,12 +374,13 @@ class Sequence2Sequence:
         cached = getattr(self, '_conf_cache', None)
         if cached is not None and cached[0] is self.params:
             return cached[1]
-        _, _, length, score, _ = decode_greedy(
-            params, self.config, enc[:self._CONF_PROBE_B], newline,
-            return_alignments=False)
-        score = score[length > 0]
-        conf = (float(torch.exp(-score.float().mean())) if score.numel()
-                else 1.0)
+        with profiling.span('api.probe'):
+            _, _, length, score, _ = decode_greedy(
+                params, self.config, enc[:self._CONF_PROBE_B], newline,
+                return_alignments=False)
+            score = score[length > 0]
+            conf = (float(torch.exp(-score.float().mean()))
+                    if score.numel() else 1.0)
         self._conf_cache = (self.params, conf)
         self.logger.debug('model confidence probe: %.4f', conf)
         return conf
@@ -492,6 +493,7 @@ class Sequence2Sequence:
         self.logger.info('fused-decode autotune: %s', result)
         return result
 
+    @profiling.traced('api.correct_lines')
     def correct_lines(self, lines, conf=None, fast=True, greedy=True,
                       return_alignments=True):
         """Correct text strings (reference seq2seq.py:782-842).
@@ -578,6 +580,7 @@ class Sequence2Sequence:
             out[3].extend(als)
         return out
 
+    @profiling.traced('api.dispatch')
     def _dispatch_batch(self, lines, conf, greedy, return_alignments=True):
         """Run one batch's decode on the device and return a handle
         (device tensors + metadata) without fetching; `_finish_batch`
@@ -661,6 +664,7 @@ class Sequence2Sequence:
                 gather_batch(torch.cat(parts, dim=1), self.mesh, rows),
                 out['idx'].shape[2], T, return_alignments)
 
+    @profiling.traced('api.finish')
     def _finish_batch(self, handle):
         """Fetch a `_dispatch_batch` handle and rebuild host results."""
         if handle[0] == 'beam':

@@ -48,9 +48,11 @@ What differs from the JAX package, and why:
   and the search depends on it (dead slots are all ``inf``, boosted
   candidates all sit at exactly the threshold): `_top_k` is a stable
   descending sort, since ``torch.topk`` promises no order among ties;
-- the ``lax.while_loop`` is a Python loop that reads ``all(done)`` on
-  the host once per iteration, and the reverse ``lax.scan`` backtrace a
-  loop on the device over the iterations that ran;
+- the ``lax.while_loop`` is a Python loop that reads the number of
+  lines not yet done on the host once per iteration (which the tracer
+  of utils/profiling.py also counts), each iteration a
+  ``decoders.beam_iteration`` span, and the reverse ``lax.scan``
+  backtrace a loop on the device over the iterations that ran;
 - the decoder step has a second route through the fused CUDA kernel
   K3 (ops/decode_step_kernel.py), see `_BEAM_STEP_KERNEL`, which reads
   the window rows by index instead of gathering them.
@@ -65,6 +67,7 @@ from ..ops.decode_step_kernel import (fused_decode_step_indexed,
                                       fused_step_supported, pack_weights,
                                       step_covers)
 from ..ops.lstm import mm
+from ..utils import profiling
 from . import seq2seq
 from .config import Seq2SeqConfig
 from .seq2seq import encode, ensure_onehot
@@ -337,239 +340,251 @@ def decode_beam(params, config: Seq2SeqConfig, bp: BeamParams, enc_input,
         return torch.gather(x, 1, ix)
 
     t = 0
-    while t < S and not bool(done.all()):
-        # --- pick the K best ACTIVE nodes per line for expansion ------
-        # (the reference pops best-first, skimming '\n' nodes into
-        # final_beam along the way, until the fringe holds batch_size
-        # actives, seq2seq.py:1400-1415: finals never consume expansion
-        # slots, and exactly the finals that outrank the K-th active pop
-        # before the fringe fills)
-        active_pro = torch.where(is_fin, inf, pro)
-        neg, exp_ix = _top_k(-active_pro, K)                  # (B, K)
-        exp_pro = -neg
-        exp_ok = torch.isfinite(exp_pro) & ~done[:, None]
-        e_cum = g1(cum, exp_ix)
-        e_nchars = g1(nchars, exp_ix)
+    # one host read an iteration: the number of lines not yet done,
+    # which ends the loop and feeds the beam_live_rows counter
+    tracing = profiling.tracer.active()
+    live = B - int(done.sum())
+    while live and t < S:
+        with profiling.span('decoders.beam_iteration'):
+            if tracing:
+                profiling.count('decoders.beam_iterations')
+                profiling.count('decoders.beam_rows', B)
+                profiling.count('decoders.beam_live_rows', live)
+            # --- pick the K best ACTIVE nodes per line for expansion ------
+            # (the reference pops best-first, skimming '\n' nodes into
+            # final_beam along the way, until the fringe holds batch_size
+            # actives, seq2seq.py:1400-1415: finals never consume expansion
+            # slots, and exactly the finals that outrank the K-th active pop
+            # before the fringe fills)
+            active_pro = torch.where(is_fin, inf, pro)
+            neg, exp_ix = _top_k(-active_pro, K)                  # (B, K)
+            exp_pro = -neg
+            exp_ok = torch.isfinite(exp_pro) & ~done[:, None]
+            e_cum = g1(cum, exp_ix)
+            e_nchars = g1(nchars, exp_ix)
 
-        # --- bank queued finals that pop before the fringe fills ------
-        # a final pops iff it ranks better than the K-th active; when the
-        # queue holds fewer than K actives the reference drains it
-        # completely, banking every final
-        kth = torch.where(torch.isfinite(exp_pro).all(dim=1),
-                          exp_pro[:, -1], inf)                # (B,)
-        fin_bank = (is_fin & torch.isfinite(pro) & (pro < kth[:, None])
-                    & ~done[:, None])
-        fin_cost = torch.where(fin_bank, pro, inf)            # (B, R)
-        neg3, bsel = _top_k(-torch.cat([bank_cost, fin_cost], dim=1), F)
-        nb_cost = -neg3
-        b_old = bsel < F
-        b_oix = torch.clamp(bsel, max=F - 1)
-        bk = torch.clamp(bsel - F, min=0)                     # (B, F) into R
+            # --- bank queued finals that pop before the fringe fills ------
+            # a final pops iff it ranks better than the K-th active; when the
+            # queue holds fewer than K actives the reference drains it
+            # completely, banking every final
+            kth = torch.where(torch.isfinite(exp_pro).all(dim=1),
+                              exp_pro[:, -1], inf)                # (B,)
+            fin_bank = (is_fin & torch.isfinite(pro) & (pro < kth[:, None])
+                        & ~done[:, None])
+            fin_cost = torch.where(fin_bank, pro, inf)            # (B, R)
+            neg3, bsel = _top_k(-torch.cat([bank_cost, fin_cost], dim=1), F)
+            nb_cost = -neg3
+            b_old = bsel < F
+            b_oix = torch.clamp(bsel, max=F - 1)
+            bk = torch.clamp(bsel - F, min=0)             # (B, F) into R
 
-        def bfield(old, new_r):
-            return torch.where(b_old, g1(old, b_oix), g1(new_r, bk))
+            def bfield(old, new_r):
+                return torch.where(b_old, g1(old, b_oix), g1(new_r, bk))
 
-        nb_cum = bfield(bank_cum, cum)
-        nb_len = bfield(bank_len, nchars)
-        # the banked node's text is its trie chain up to iteration t:
-        # the backtrace starts at its start-of-t slot index
-        nb_t = bfield(bank_t, torch.full((B, R), t, dtype=i32, device=dev))
-        nb_parent = bfield(bank_parent, slots)
+            nb_cum = bfield(bank_cum, cum)
+            nb_len = bfield(bank_len, nchars)
+            # the banked node's text is its trie chain up to iteration t:
+            # the backtrace starts at its start-of-t slot index
+            nb_t = bfield(bank_t, torch.full((B, R), t, dtype=i32, device=dev))
+            nb_parent = bfield(bank_parent, slots)
 
-        # --- reference early stop (seq2seq.py:1417-1419): strictly more
-        # --- than beam_width_out finals found AND the best final strictly
-        # --- beats the best active selected this iteration --------------
-        bank_full = torch.isfinite(nb_cost[:, -1])
-        best_active = torch.where(exp_ok[:, 0], exp_pro[:, 0], inf)
-        stop = bank_full & (nb_cost[:, 0] < best_active)
-        e_bpos = g1(book_pos, exp_ix)
-        e_wasrej = g1(book_max1, exp_ix)
+            # --- reference early stop (seq2seq.py:1417-1419): strictly more
+            # --- than beam_width_out finals found AND the best final strictly
+            # --- beats the best active selected this iteration --------------
+            bank_full = torch.isfinite(nb_cost[:, -1])
+            best_active = torch.where(exp_ok[:, 0], exp_pro[:, 0], inf)
+            stop = bank_full & (nb_cost[:, 0] < best_active)
+            e_bpos = g1(book_pos, exp_ix)
+            e_wasrej = g1(book_max1, exp_ix)
 
-        # --- decoder step for the expansion set -----------------------
-        step_out = beam_decoder_step(
-            params, config, _take(feedback, exp_ix),
-            [(_take(hh, exp_ix), _take(cc, exp_ix)) for hh, cc in h],
-            _take(aw, exp_ix), g1(astart, exp_ix), attended, u,
-            with_lm=bp.lm_predict, src_lengths=lengths,
-            step_weights=step_weights)
-        probs, n_h, a_w, a_start, new_exp = step_out[:5]
+            # --- decoder step for the expansion set -----------------------
+            step_out = beam_decoder_step(
+                params, config, _take(feedback, exp_ix),
+                [(_take(hh, exp_ix), _take(cc, exp_ix)) for hh, cc in h],
+                _take(aw, exp_ix), g1(astart, exp_ix), attended, u,
+                with_lm=bp.lm_predict, src_lengths=lengths,
+                step_weights=step_weights)
+            probs, n_h, a_w, a_start, new_exp = step_out[:5]
 
-        # --- rejection candidate (seq2seq.py:1441-1470) ---------------
-        # the previous position comes from the BOOKKEEPING alignment
-        # (src_pos for rejection nodes, the soft expectation otherwise),
-        # new_exp is this step's soft expectation: the reference's
-        # prev_source_pos/source_pos pair
-        first = e_nchars == 0
-        misal = torch.where(first, torch.zeros_like(new_exp),
-                            torch.abs(new_exp - e_bpos - 1.0))
-        rounded = torch.round(new_exp).long()
-        src_pos = torch.where(e_wasrej, e_bpos.long() + 1, rounded)
-        src_pos = torch.clamp(torch.where(first, torch.zeros_like(src_pos),
-                                          src_pos), 0, T - 1)
-        rej_idx = g1(src_top, src_pos)
-        # an unmapped source char is index 0 (underspecification), which
-        # the reference never admits as a candidate, not even via the
-        # rejection path (seq2seq.py:1504-1506)
-        rej_ok = ((rt > 0) & ((misal < 0.1) | e_wasrej | first)
-                  & g1(src_any, src_pos) & (rej_idx != 0))
-        # candidate SCORING runs in float32 even under bfloat16 compute:
-        # the boost clamps candidates to exactly the threshold, and a
-        # bfloat16 clamp value (0.30078125 for 0.3) would drift a clamped
-        # chain's cost by n*0.0026 against float32 serving. With
-        # thresholds, ordering and admission in float32 the tie structure
-        # matches float32 serving
-        probs_f = probs.to(F32)
-        rej_p = torch.gather(probs_f, 2, rej_idx[..., None])[..., 0]
-        boost = rej_ok & (rej_p < rt)
-        clamp = (torch.arange(V, device=dev) == rej_idx[..., None]) \
-            & boost[..., None]
-        probs_adj = probs_f.masked_fill(clamp, rt)
-        # the feedback copy stays in the model's dtype (it re-enters the
-        # decoder step like the reference's score vector)
-        probs_adj_fb = probs.to(dt).masked_fill(clamp, rt)
+            # --- rejection candidate (seq2seq.py:1441-1470) ---------------
+            # the previous position comes from the BOOKKEEPING alignment
+            # (src_pos for rejection nodes, the soft expectation otherwise),
+            # new_exp is this step's soft expectation: the reference's
+            # prev_source_pos/source_pos pair
+            first = e_nchars == 0
+            misal = torch.where(first, torch.zeros_like(new_exp),
+                                torch.abs(new_exp - e_bpos - 1.0))
+            rounded = torch.round(new_exp).long()
+            src_pos = torch.where(e_wasrej, e_bpos.long() + 1, rounded)
+            src_pos = torch.clamp(torch.where(first, torch.zeros_like(src_pos),
+                                              src_pos), 0, T - 1)
+            rej_idx = g1(src_top, src_pos)
+            # an unmapped source char is index 0 (underspecification), which
+            # the reference never admits as a candidate, not even via the
+            # rejection path (seq2seq.py:1504-1506)
+            rej_ok = ((rt > 0) & ((misal < 0.1) | e_wasrej | first)
+                      & g1(src_any, src_pos) & (rej_idx != 0))
+            # candidate SCORING runs in float32 even under bfloat16 compute:
+            # the boost clamps candidates to exactly the threshold, and a
+            # bfloat16 clamp value (0.30078125 for 0.3) would drift a clamped
+            # chain's cost by n*0.0026 against float32 serving. With
+            # thresholds, ordering and admission in float32 the tie structure
+            # matches float32 serving
+            probs_f = probs.to(F32)
+            rej_p = torch.gather(probs_f, 2, rej_idx[..., None])[..., 0]
+            boost = rej_ok & (rej_p < rt)
+            clamp = (torch.arange(V, device=dev) == rej_idx[..., None]) \
+                & boost[..., None]
+            probs_adj = probs_f.masked_fill(clamp, rt)
+            # the feedback copy stays in the model's dtype (it re-enters the
+            # decoder step like the reference's score vector)
+            probs_adj_fb = probs.to(dt).masked_fill(clamp, rt)
 
-        # --- candidate admission --------------------------------------
-        # top-C by (boosted) probability plus one dedicated slot for the
-        # rejection candidate: the reference admits it *in addition* to
-        # every threshold-admitted candidate (seq2seq.py:1480-1501). The
-        # underspecification char (index 0) stays IN the ranking: the
-        # reference scans it, counts it against the beam width, lets it
-        # define `highest`, and only then skips it
-        cand_p, cand_idx = _top_k(probs_adj, C)               # (B, K, C)
-        valid = ((cand_p >= cand_p[..., :1] * bp.beam_threshold_in)
-                 & (cand_idx != 0))
-        in_top = ((cand_idx == rej_idx[..., None]) & valid).any(dim=-1)
-        cand_idx = torch.cat([cand_idx, rej_idx[..., None]], dim=-1)
-        cand_p = torch.cat([cand_p, torch.clamp(rej_p, min=rt)[..., None]],
-                           dim=-1)                            # (B, K, CC)
-        # admitted rejection candidates inside the top-C also bypass the
-        # relative threshold; the dedicated slot is used only when the
-        # top-C holds no admitted copy (the top-C copy wins)
-        is_rej = rej_ok[..., None] & (cand_idx == rej_idx[..., None])
-        valid = torch.cat([valid | is_rej[..., :C],
-                           (rej_ok & ~in_top)[..., None]], dim=-1)
+            # --- candidate admission --------------------------------------
+            # top-C by (boosted) probability plus one dedicated slot for the
+            # rejection candidate: the reference admits it *in addition* to
+            # every threshold-admitted candidate (seq2seq.py:1480-1501). The
+            # underspecification char (index 0) stays IN the ranking: the
+            # reference scans it, counts it against the beam width, lets it
+            # define `highest`, and only then skips it
+            cand_p, cand_idx = _top_k(probs_adj, C)               # (B, K, C)
+            valid = ((cand_p >= cand_p[..., :1] * bp.beam_threshold_in)
+                     & (cand_idx != 0))
+            in_top = ((cand_idx == rej_idx[..., None]) & valid).any(dim=-1)
+            cand_idx = torch.cat([cand_idx, rej_idx[..., None]], dim=-1)
+            cand_p = torch.cat([cand_p, torch.clamp(rej_p, min=rt)[..., None]],
+                               dim=-1)                            # (B, K, CC)
+            # admitted rejection candidates inside the top-C also bypass the
+            # relative threshold; the dedicated slot is used only when the
+            # top-C holds no admitted copy (the top-C copy wins)
+            is_rej = rej_ok[..., None] & (cand_idx == rej_idx[..., None])
+            valid = torch.cat([valid | is_rej[..., :C],
+                               (rej_ok & ~in_top)[..., None]], dim=-1)
 
-        if bp.lm_predict:
-            # the LM probability rates the hypothesis globally; decoder
-            # scores still control beam entry (seq2seq.py:1488-1490)
-            rate_p = torch.gather(step_out[5], 2, cand_idx)
-        else:
-            rate_p = cand_p
-        cand_cost = -torch.log(torch.clamp(rate_p.to(F32), min=1e-30))
-        c_cum = e_cum[..., None] + cand_cost
-        c_nchars = (e_nchars + 1)[..., None].expand(B, K, CC)
-        c_pro = c_cum + bp.cost0 * torch.abs(
-            (c_nchars + 1).to(F32) - len0[:, None, None])
-        ok = valid & exp_ok[..., None] & torch.isfinite(c_cum)
-        c_pro = torch.where(ok, c_pro, inf)
-        # newline candidates enter the reservoir like all others (flagged
-        # final); they reach the bank only via a later top-K selection
-        c_fin = (cand_idx == newline_idx) & ok
-        # per-candidate alignment center (rejection -> one-hot marker)
-        c_center = torch.where(
-            is_rej, src_pos[..., None],
-            torch.clamp(rounded, 0, T - 1)[..., None]).to(i32)
+            if bp.lm_predict:
+                # the LM probability rates the hypothesis globally; decoder
+                # scores still control beam entry (seq2seq.py:1488-1490)
+                rate_p = torch.gather(step_out[5], 2, cand_idx)
+            else:
+                rate_p = cand_p
+            cand_cost = -torch.log(torch.clamp(rate_p.to(F32), min=1e-30))
+            c_cum = e_cum[..., None] + cand_cost
+            c_nchars = (e_nchars + 1)[..., None].expand(B, K, CC)
+            c_pro = c_cum + bp.cost0 * torch.abs(
+                (c_nchars + 1).to(F32) - len0[:, None, None])
+            ok = valid & exp_ok[..., None] & torch.isfinite(c_cum)
+            c_pro = torch.where(ok, c_pro, inf)
+            # newline candidates enter the reservoir like all others (flagged
+            # final); they reach the bank only via a later top-K selection
+            c_fin = (cand_idx == newline_idx) & ok
+            # per-candidate alignment center (rejection -> one-hot marker)
+            c_center = torch.where(
+                is_rej, src_pos[..., None],
+                torch.clamp(rounded, 0, T - 1)[..., None]).to(i32)
 
-        # --- merge candidates into the reservoir ----------------------
-        # every popped node leaves the queue: actives by expansion,
-        # finals by banking
-        res_pro = pro.scatter(1, exp_ix, torch.where(exp_ok, inf,
-                                                     g1(pro, exp_ix)))
-        res_pro = torch.where(fin_bank, inf, res_pro)
-        neg2, sel = _top_k(
-            -torch.cat([res_pro, c_pro.reshape(B, K * CC)], dim=1), R)
-        new_pro = -neg2
-        is_old = sel < R
-        old_ix = torch.clamp(sel, max=R - 1)
-        j = torch.clamp(sel - R, min=0)
-        par_k = j // CC
-        rank = j % CC
+            # --- merge candidates into the reservoir ----------------------
+            # every popped node leaves the queue: actives by expansion,
+            # finals by banking
+            res_pro = pro.scatter(1, exp_ix, torch.where(exp_ok, inf,
+                                                         g1(pro, exp_ix)))
+            res_pro = torch.where(fin_bank, inf, res_pro)
+            neg2, sel = _top_k(
+                -torch.cat([res_pro, c_pro.reshape(B, K * CC)], dim=1), R)
+            new_pro = -neg2
+            is_old = sel < R
+            old_ix = torch.clamp(sel, max=R - 1)
+            j = torch.clamp(sel - R, min=0)
+            par_k = j // CC
+            rank = j % CC
 
-        def cand_of(x):                               # (B,K,CC) -> (B,R)
-            return g1(x.reshape(B, K * CC), j)
+            def cand_of(x):                               # (B,K,CC) -> (B,R)
+                return g1(x.reshape(B, K * CC), j)
 
-        def merge(old, new_k):
-            """Post-merge slots of a per-node tensor: carried over from
-            `old` (B, R, ...) or taken from the parent's step result
-            `new_k` (B, K, ...), rounded to the carried dtype."""
-            pick = is_old.reshape(is_old.shape + (1,) * (old.dim() - 2))
-            return torch.where(pick, _take(old, old_ix),
-                               _take(new_k, par_k).to(old.dtype))
+            def merge(old, new_k):
+                """Post-merge slots of a per-node tensor: carried over from
+                `old` (B, R, ...) or taken from the parent's step result
+                `new_k` (B, K, ...), rounded to the carried dtype."""
+                pick = is_old.reshape(is_old.shape + (1,) * (old.dim() - 2))
+                return torch.where(pick, _take(old, old_ix),
+                                   _take(new_k, par_k).to(old.dtype))
 
-        new_cum = torch.where(is_old, g1(cum, old_ix), cand_of(c_cum))
-        new_cum = torch.where(torch.isfinite(new_pro), new_cum, inf)
-        new_nchars = merge(nchars, e_nchars + 1)
-        # attention state: ALWAYS the raw soft alignment rows, through
-        # rejections too (the one-hot marker lives only in the node's
-        # bookkeeping alignment, seq2seq.py:1510-1521)
-        sel_isrej = cand_of(is_rej)
-        sel_srcpos = cand_of(src_pos[..., None].expand(B, K, CC))
-        new_aw = merge(aw, a_w)
-        new_astart = merge(astart, a_start)
-        # bookkeeping: rejection candidates record the one-hot position
-        # (marker), normal candidates the step's soft expectation and
-        # whether the soft row saturated to exactly 1.0
-        step_max1 = a_w.amax(dim=-1) == 1.0                    # (B, K)
-        new_bpos = torch.where(
-            is_old, g1(book_pos, old_ix),
-            torch.where(sel_isrej, sel_srcpos.to(F32), g1(new_exp, par_k)))
-        new_bmax1 = torch.where(is_old, g1(book_max1, old_ix),
-                                sel_isrej | g1(step_max1, par_k))
-        new_h = tuple((merge(h[n][0], n_h[n][0]), merge(h[n][1], n_h[n][1]))
-                      for n in range(len(n_h)))
-        # trie records for this iteration's post-merge slots: parent in
-        # previous-iteration numbering; char/p/center only for new nodes
-        rec_parent[:, t] = torch.where(is_old, old_ix, g1(exp_ix, par_k))
-        rec_char[:, t] = torch.where(is_old, -1, cand_of(cand_idx)).to(i32)
-        rec_p[:, t] = torch.where(is_old, 0.0, cand_of(cand_p)).to(dt)
-        rec_ap[:, t] = torch.where(is_old, 0, cand_of(c_center))
-        if return_alignments:
-            # bookkeeping alignment row per new node: one-hot at src_pos
-            # for rejection candidates (window start = src_pos, weight 1
-            # at offset 0), the step's raw soft windowed row otherwise
-            onehot0 = (torch.arange(WIN, device=dev) == 0).to(dt)
-            rows = torch.where(sel_isrej[..., None], onehot0,
-                               _take(a_w, par_k).to(dt))
-            rec_arow[:, t] = torch.where(is_old[..., None],
-                                         torch.zeros_like(rows), rows)
-            rec_astart[:, t] = torch.where(
-                is_old, 0, torch.where(sel_isrej, sel_srcpos.to(i32),
-                                       g1(a_start, par_k)))
+            new_cum = torch.where(is_old, g1(cum, old_ix), cand_of(c_cum))
+            new_cum = torch.where(torch.isfinite(new_pro), new_cum, inf)
+            new_nchars = merge(nchars, e_nchars + 1)
+            # attention state: ALWAYS the raw soft alignment rows, through
+            # rejections too (the one-hot marker lives only in the node's
+            # bookkeeping alignment, seq2seq.py:1510-1521)
+            sel_isrej = cand_of(is_rej)
+            sel_srcpos = cand_of(src_pos[..., None].expand(B, K, CC))
+            new_aw = merge(aw, a_w)
+            new_astart = merge(astart, a_start)
+            # bookkeeping: rejection candidates record the one-hot position
+            # (marker), normal candidates the step's soft expectation and
+            # whether the soft row saturated to exactly 1.0
+            step_max1 = a_w.amax(dim=-1) == 1.0                    # (B, K)
+            new_bpos = torch.where(
+                is_old, g1(book_pos, old_ix),
+                torch.where(sel_isrej, sel_srcpos.to(F32), g1(new_exp, par_k)))
+            new_bmax1 = torch.where(is_old, g1(book_max1, old_ix),
+                                    sel_isrej | g1(step_max1, par_k))
+            new_h = tuple((merge(h[n][0], n_h[n][0]),
+                           merge(h[n][1], n_h[n][1]))
+                          for n in range(len(n_h)))
+            # trie records for this iteration's post-merge slots: parent in
+            # previous-iteration numbering; char/p/center only for new nodes
+            rec_parent[:, t] = torch.where(is_old, old_ix, g1(exp_ix, par_k))
+            rec_char[:, t] = torch.where(is_old, -1, cand_of(cand_idx)).to(i32)
+            rec_p[:, t] = torch.where(is_old, 0.0, cand_of(cand_p)).to(dt)
+            rec_ap[:, t] = torch.where(is_old, 0, cand_of(c_center))
+            if return_alignments:
+                # bookkeeping alignment row per new node: one-hot at src_pos
+                # for rejection candidates (window start = src_pos, weight 1
+                # at offset 0), the step's raw soft windowed row otherwise
+                onehot0 = (torch.arange(WIN, device=dev) == 0).to(dt)
+                rows = torch.where(sel_isrej[..., None], onehot0,
+                                   _take(a_w, par_k).to(dt))
+                rec_arow[:, t] = torch.where(is_old[..., None],
+                                             torch.zeros_like(rows), rows)
+                rec_astart[:, t] = torch.where(
+                    is_old, 0, torch.where(sel_isrej, sel_srcpos.to(i32),
+                                           g1(a_start, par_k)))
 
-        # feedback for new nodes: the parent's boosted probs with the
-        # better-ranked *admitted* candidate maxima zeroed (the reference
-        # zeroes the candidates it actually enqueued, seq2seq.py:1515-1520)
-        zero_c = ((torch.arange(CC, device=dev) < rank[..., None])
-                  & _take(valid, par_k))                       # (B, R, CC)
-        n_zero = zeros((B, R, V), F32).scatter_add_(
-            2, _take(cand_idx, par_k), zero_c.to(F32))
-        cand_feedback = _take(probs_adj_fb, par_k).masked_fill(n_zero > 0,
-                                                               0.0)
-        new_feedback = torch.where(is_old[..., None],
-                                   _take(feedback, old_ix), cand_feedback)
-        # the finality flag travels with the merged nodes
-        new_isfin = torch.where(is_old, g1(is_fin, old_ix), cand_of(c_fin))
+            # feedback for new nodes: the parent's boosted probs with the
+            # better-ranked *admitted* candidate maxima zeroed (the reference
+            # zeroes the candidates it actually enqueued, seq2seq.py:1515-1520)
+            zero_c = ((torch.arange(CC, device=dev) < rank[..., None])
+                      & _take(valid, par_k))                       # (B, R, CC)
+            n_zero = zeros((B, R, V), F32).scatter_add_(
+                2, _take(cand_idx, par_k), zero_c.to(F32))
+            cand_feedback = _take(probs_adj_fb, par_k).masked_fill(n_zero > 0,
+                                                                   0.0)
+            new_feedback = torch.where(is_old[..., None],
+                                       _take(feedback, old_ix), cand_feedback)
+            # the finality flag travels with the merged nodes
+            new_isfin = torch.where(is_old, g1(is_fin, old_ix), cand_of(c_fin))
 
-        if return_trace:
-            trace['rec_exp'][:, t] = torch.where(exp_ok, exp_ix, -1).to(i32)
-            trace['rec_cidx'][:, t] = cand_idx.to(i32)
-            trace['rec_cp'][:, t] = cand_p
-            trace['rec_cvalid'][:, t] = valid
-            trace['rec_misal'][:, t] = misal
-            trace['rec_srcpos'][:, t] = src_pos.to(i32)
-            trace['rec_rejok'][:, t] = rej_ok
-            trace['rec_rejp'][:, t] = rej_p
+            if return_trace:
+                trace['rec_exp'][:, t] = torch.where(exp_ok, exp_ix,
+                                                     -1).to(i32)
+                trace['rec_cidx'][:, t] = cand_idx.to(i32)
+                trace['rec_cp'][:, t] = cand_p
+                trace['rec_cvalid'][:, t] = valid
+                trace['rec_misal'][:, t] = misal
+                trace['rec_srcpos'][:, t] = src_pos.to(i32)
+                trace['rec_rejok'][:, t] = rej_ok
+                trace['rec_rejp'][:, t] = rej_p
 
-        # --- termination ----------------------------------------------
-        no_live = ~torch.isfinite(new_pro).any(dim=1)
-        over = float(t + 1) >= 2.0 * len0
-        done = done | stop | no_live | over
-        h, aw, astart, feedback = new_h, new_aw, new_astart, new_feedback
-        book_pos, book_max1, is_fin = new_bpos, new_bmax1, new_isfin
-        cum, pro, nchars = new_cum, new_pro, new_nchars
-        bank_cost, bank_cum, bank_len = nb_cost, nb_cum, nb_len
-        bank_t, bank_parent = nb_t, nb_parent
-        t += 1
+            # --- termination ----------------------------------------------
+            no_live = ~torch.isfinite(new_pro).any(dim=1)
+            over = float(t + 1) >= 2.0 * len0
+            done = done | stop | no_live | over
+            h, aw, astart, feedback = new_h, new_aw, new_astart, new_feedback
+            book_pos, book_max1, is_fin = new_bpos, new_bmax1, new_isfin
+            cum, pro, nchars = new_cum, new_pro, new_nchars
+            bank_cost, bank_cum, bank_len = nb_cost, nb_cum, nb_len
+            bank_t, bank_parent = nb_t, nb_parent
+            t += 1
+            live = t < S and B - int(done.sum())
 
     count = torch.isfinite(bank_cost).sum(dim=1)
 
@@ -579,29 +594,30 @@ def decode_beam(params, config: Seq2SeqConfig, bp: BeamParams, enc_input,
     # The banked node's own newline record is part of its chain, so the
     # walk emits the complete text. Position S of the output buffers
     # takes the writes of entries that emit nothing at an iteration.
-    valid_f = torch.isfinite(bank_cost)
-    idx = zeros((B, F, S + 1), i32)
-    prob = zeros((B, F, S + 1), dt)
-    ap = zeros((B, F, S + 1), i32)
-    if return_alignments:
-        arow = zeros((B, F, S + 1, WIN), dt)
-        ast = zeros((B, F, S + 1), i32)
-    pos = bank_parent
-    outpos = bank_len.long() - 1
-    for tt in range(t - 1, -1, -1):
-        rc = g1(rec_char[:, tt], pos)                          # (B, F)
-        active = valid_f & (tt < bank_t)
-        emit = active & (rc >= 0) & (outpos >= 0)
-        wpos = torch.where(emit, outpos, S)[..., None]
-        idx.scatter_(2, wpos, rc[..., None])
-        prob.scatter_(2, wpos, g1(rec_p[:, tt], pos)[..., None])
-        ap.scatter_(2, wpos, g1(rec_ap[:, tt], pos)[..., None])
+    with profiling.span('decoders.backtrace'):
+        valid_f = torch.isfinite(bank_cost)
+        idx = zeros((B, F, S + 1), i32)
+        prob = zeros((B, F, S + 1), dt)
+        ap = zeros((B, F, S + 1), i32)
         if return_alignments:
-            arow.scatter_(2, wpos[..., None].expand(B, F, 1, WIN),
-                          _take(rec_arow[:, tt], pos)[:, :, None])
-            ast.scatter_(2, wpos, g1(rec_astart[:, tt], pos)[..., None])
-        outpos = outpos - emit.long()
-        pos = torch.where(active, g1(rec_parent[:, tt], pos), pos)
+            arow = zeros((B, F, S + 1, WIN), dt)
+            ast = zeros((B, F, S + 1), i32)
+        pos = bank_parent
+        outpos = bank_len.long() - 1
+        for tt in range(t - 1, -1, -1):
+            rc = g1(rec_char[:, tt], pos)                          # (B, F)
+            active = valid_f & (tt < bank_t)
+            emit = active & (rc >= 0) & (outpos >= 0)
+            wpos = torch.where(emit, outpos, S)[..., None]
+            idx.scatter_(2, wpos, rc[..., None])
+            prob.scatter_(2, wpos, g1(rec_p[:, tt], pos)[..., None])
+            ap.scatter_(2, wpos, g1(rec_ap[:, tt], pos)[..., None])
+            if return_alignments:
+                arow.scatter_(2, wpos[..., None].expand(B, F, 1, WIN),
+                              _take(rec_arow[:, tt], pos)[:, :, None])
+                ast.scatter_(2, wpos, g1(rec_astart[:, tt], pos)[..., None])
+            outpos = outpos - emit.long()
+            pos = torch.where(active, g1(rec_parent[:, tt], pos), pos)
     # expose only beam_width_out solutions (the extra internal slot
     # exists for the reference's early-stop rule)
     Fo = bp.beam_width_out

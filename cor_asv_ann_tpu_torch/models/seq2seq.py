@@ -28,6 +28,7 @@ from ..ops.lstm import (attention_cell_preact, gate_math, lstm_scan,
                         lstm_step, mm)
 from ..ops.lstm_scan_kernel import fused_scan_supported, lstm_scan_fused
 from ..ops.teacher_kernel import teacher_fused_supported, teacher_top_fused
+from ..utils import profiling
 from .config import Seq2SeqConfig
 from .teacher_scan import teacher_top_scan
 
@@ -139,6 +140,7 @@ def ensure_onehot(enc_input, config, params):
     return (onehot * valid[..., None]).to(dt)
 
 
+@profiling.traced('decoders.encode')
 def encode(params, config: Seq2SeqConfig, enc_input, dropout_rng=None,
            train=False):
     """Run the encoder over (B, T, V) input.

@@ -58,6 +58,7 @@ import torch
 from .. import resolve_device
 from ..parallel.mesh import (gather_params, shard_batch, shard_params,
                              sum_over_data, sync_host_rng)
+from ..utils import profiling
 from ..utils.data import (gen_line_batches, vectorize_lines,
                           vectorize_lines_indices)
 from . import seq2seq
@@ -202,6 +203,7 @@ def _shard_step_batch(mesh, arrays):
     return local, (mesh if sharded else None)
 
 
+@profiling.traced('training.step')
 def train_step(params, optimizer, config, enc, dec_in, dec_out, weights,
                rng, frozen_mask=None, lm_loss=False, compute_dtype=None,
                mesh=None):
@@ -237,22 +239,25 @@ def train_step(params, optimizer, config, enc, dec_in, dec_out, weights,
     if mesh is not None:
         seq2seq._TRAIN_MESH = data_mesh
     try:
-        loss = loss_fn(used, config, enc, dec_in, dec_out, weights, rng,
-                       lm_loss, data_mesh)
-        grads = torch.autograd.grad(loss, leaves)
+        with profiling.span('training.forward'):
+            loss = loss_fn(used, config, enc, dec_in, dec_out, weights, rng,
+                           lm_loss, data_mesh)
+        with profiling.span('training.backward'):
+            grads = torch.autograd.grad(loss, leaves)
     finally:
         seq2seq._TRAIN_MESH = old_mesh
-    masks = (tree_leaves(frozen_mask) if frozen_mask is not None
-             else [None] * len(leaves))
-    with torch.no_grad():
-        grads = [g.float() if m is None else g.float() * m
-                 for g, m in zip(grads, masks)]
-        sq = ([None] * len(grads) if mesh is None
-              else _full_sq_norms(grads, config, mesh))
-        for leaf, grad, s in zip(leaves, grads, sq):
-            leaf.grad = clip_per_tensor_norm(grad, sq_norm=s)
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
+    with profiling.span('training.update'):
+        masks = (tree_leaves(frozen_mask) if frozen_mask is not None
+                 else [None] * len(leaves))
+        with torch.no_grad():
+            grads = [g.float() if m is None else g.float() * m
+                     for g, m in zip(grads, masks)]
+            sq = ([None] * len(grads) if mesh is None
+                  else _full_sq_norms(grads, config, mesh))
+            for leaf, grad, s in zip(leaves, grads, sq):
+                leaf.grad = clip_per_tensor_norm(grad, sq_norm=s)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
     if data_mesh is None:
         return loss.detach()
     return data_mesh.sum_over(loss.detach().float().reshape(1), 'data')[0]

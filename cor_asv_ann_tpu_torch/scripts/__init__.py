@@ -10,6 +10,16 @@ device_option = click.option(
     '--device', default='cuda',
     help='torch device to run on (cuda, cuda:N or cpu)')
 
+# cProfile of the run; with either, the program's span totals and
+# counters are logged beside its wall time (utils/profiling.py)
+profile_option = click.option(
+    '--profile', is_flag=True,
+    help='profile the run with cProfile (stderr report)')
+profile_file_option = click.option(
+    '--profile-file', default=None,
+    type=click.Path(dir_okay=False, writable=True),
+    help='dump cProfile stats to this file')
+
 # the counterpart of the JAX package's --jax-trace (utils/profiling.py)
 torch_trace_option = click.option(
     '--torch-trace', default=None, type=click.Path(file_okay=False),

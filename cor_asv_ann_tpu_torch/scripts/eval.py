@@ -10,8 +10,8 @@ import logging
 import click
 
 from ..utils.profiling import maybe_profile
-from . import (device_option, end_mesh, mesh_option, rank_device,
-               start_mesh, torch_trace_option)
+from . import (device_option, end_mesh, mesh_option, profile_file_option,
+               profile_option, rank_device, start_mesh, torch_trace_option)
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -40,11 +40,8 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
               help='aggregate and compare character histograms')
 @click.argument('data', nargs=-1, type=click.Path(dir_okay=False,
                                                   exists=True))
-@click.option('--profile', is_flag=True,
-              help='profile the run with cProfile (stderr report)')
-@click.option('--profile-file', default=None,
-              type=click.Path(dir_okay=False, writable=True),
-              help='dump cProfile stats to this file')
+@profile_option
+@profile_file_option
 @torch_trace_option
 @mesh_option
 @click.option('--compute', default='float32',

@@ -13,7 +13,9 @@ import os
 
 import click
 
-from . import device_option, end_mesh, rank_device, start_mesh
+from ..utils.profiling import maybe_profile
+from . import (device_option, end_mesh, profile_file_option, profile_option,
+               rank_device, start_mesh, torch_trace_option)
 
 CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
 
@@ -52,8 +54,12 @@ CONTEXT_SETTINGS = dict(help_option_names=['-h', '--help'])
               help='file to use for validation (instead of random split)')
 @click.argument('data', nargs=-1, type=click.Path(dir_okay=False,
                                                   exists=True))
+@profile_option
+@profile_file_option
+@torch_trace_option
 def cli(save_model, load_model, init_model, reset_encoder, resume, width,
-        depth, compute, device, mesh_devices, valdata, data):
+        depth, compute, device, mesh_devices, valdata, data, profile,
+        profile_file, torch_trace):
     """Train a correction model on GT files.
 
     Configure a sequence-to-sequence model with the given parameters.
@@ -79,6 +85,10 @@ def cli(save_model, load_model, init_model, reset_encoder, resume, width,
     validation. Otherwise, use only those files for validation.
 
     If the training has been successful, save the model under `save_model`.
+
+    With `profile`, `profile_file` or `torch_trace`, the training is
+    profiled, and the training step's phases (forward, backward, update)
+    are logged as span totals beside its wall time.
     """
     if not data:
         raise ValueError('Training needs at least one data file')
@@ -138,8 +148,10 @@ def cli(save_model, load_model, init_model, reset_encoder, resume, width,
 
     # checkpoints (model.ckpt.weights-*.h5 + train_state.pkl) land next
     # to the model artifact, not in whatever CWD the CLI runs from
-    s2s.train(list(data), list(valdata) or None, resume=resume,
-              checkpoint_dir=os.path.dirname(os.path.abspath(save_model)))
+    with maybe_profile(profile, profile_file, torch_trace,
+                       logger=logging.getLogger(__name__)):
+        s2s.train(list(data), list(valdata) or None, resume=resume,
+                  checkpoint_dir=os.path.dirname(os.path.abspath(save_model)))
     if s2s.status > 1:
         s2s.save(save_model)
     end_mesh(mesh)

@@ -29,6 +29,7 @@ Re-derivation of the reference ANNCorrection processor
 import numpy as np
 
 from ..utils import page as P
+from ..utils import profiling
 from ..utils.data import GAP
 from .base import PageProcessor, processor_cli
 
@@ -142,6 +143,7 @@ class ANNCorrection(PageProcessor):
                     file_id='%s_%s' % (output_grp, pid))
         workspace.save()
 
+    @profiling.traced('processors.prepare')
     def _prepare_page(self, doc, page_id):
         level = self.parameter['textequiv_level']
         self.logger.info('Correcting text in page %r at the %s level',
@@ -152,6 +154,7 @@ class ANNCorrection(PageProcessor):
             self.s2s.mapping, line_sequences,
             charmap=self.parameter['charmap'])
 
+    @profiling.traced('processors.page')
     def process_page(self, docs, page_id):
         doc = docs[0]
         input_lines, textequiv_starts = self._prepare_page(doc, page_id)
@@ -162,6 +165,7 @@ class ANNCorrection(PageProcessor):
         return self._apply_page(doc, page_id, input_lines,
                                 textequiv_starts, outputs)
 
+    @profiling.traced('processors.apply')
     def _apply_page(self, doc, page_id, input_lines, textequiv_starts,
                     outputs):
         level = self.parameter['textequiv_level']
@@ -174,14 +178,17 @@ class ANNCorrection(PageProcessor):
             input_line_len = sum(
                 max((len(alt[0]) for alt in chunk), default=0)
                 for chunk in input_line)
-            realignment, distance = _alignment2path(
-                alignment, input_line_len, len(output_line),
-                1.0 / self.s2s.voc_size)
-            line, new_sequence = _update_sequence(
-                input_line, output_line, output_prob, output_score,
-                realignment, textequivs, self.logger)
-            if level != 'line':
-                _resegment_sequence(new_sequence, level, logger=self.logger)
+            with profiling.span('processors.realign'):
+                realignment, distance = _alignment2path(
+                    alignment, input_line_len, len(output_line),
+                    1.0 / self.s2s.voc_size)
+            with profiling.span('processors.update'):
+                line, new_sequence = _update_sequence(
+                    input_line, output_line, output_prob, output_score,
+                    realignment, textequivs, self.logger)
+                if level != 'line':
+                    _resegment_sequence(new_sequence, level,
+                                        logger=self.logger)
             if input_line_top != output_line:
                 self.logger.info(
                     'corrected line "%s" with %d elements, ppl: %.3f, '
@@ -191,10 +198,11 @@ class ANNCorrection(PageProcessor):
                     distance / max(len(realignment), 1) * 100)
             else:
                 self.logger.info('kept line "%s"', line.id)
-        if level != 'region':
-            page_update_higher_textequiv_levels(level, doc)
-        if level != 'glyph':
-            page_remove_lower_textequiv_levels(level, doc)
+        with profiling.span('processors.levels'):
+            if level != 'region':
+                page_update_higher_textequiv_levels(level, doc)
+            if level != 'glyph':
+                page_remove_lower_textequiv_levels(level, doc)
         return doc
 
 

@@ -4,9 +4,9 @@ lines, against the JAX package's profiling helpers.
 `maybe_profile` keeps the JAX helper's cProfile behaviour (stats to a
 file or the 30 costliest calls to stderr, the wall time to the logger)
 and writes a ``torch.profiler`` Chrome trace where the JAX one writes a
-``jax.profiler`` trace; `PhaseTimer.report` is the JAX report on the same
-totals, character for character. ``proc`` and ``eval`` with
-``--torch-trace`` write the same output as without it.
+``jax.profiler`` trace. ``proc`` and ``eval`` with ``--torch-trace``
+write the same output as without it. The tracer's spans and counters:
+tests/test_torch_tracing.py.
 """
 
 import glob
@@ -14,7 +14,6 @@ import json
 import logging
 import os
 import pstats
-import time
 
 import pytest
 import torch
@@ -22,7 +21,6 @@ from click.testing import CliRunner
 
 from cor_asv_ann_tpu.models.api import Sequence2Sequence as JaxS2S
 from cor_asv_ann_tpu.models.config import init_params
-from cor_asv_ann_tpu.utils import profiling as jprofiling
 from cor_asv_ann_tpu.utils.data import CharMapping as JaxCharMapping
 from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
 from cor_asv_ann_tpu_torch.scripts import eval as eval_cli
@@ -76,26 +74,6 @@ def test_body_errors_pass_through(tmp_path):
             raise KeyError('x')
     # cProfile still wrote its stats, as in the JAX helper
     assert (tmp_path / 'p').exists()
-
-
-def test_phase_timer_report_equals_the_jax_one(monkeypatch, caplog):
-    """The same phases on a patched clock: the same totals, the same
-    report and the same log record."""
-    reports = []
-    for module in (jprofiling, profiling):
-        clock = iter(range(1000))
-        monkeypatch.setattr(time, 'perf_counter',
-                            lambda: next(clock) * 0.37)
-        logger = logging.getLogger('phase-' + module.__name__)
-        timer = module.PhaseTimer(logger=logger)
-        for name in ('decode', 'encode', 'decode', 'align', 'io'):
-            with timer.phase(name):
-                pass
-        with caplog.at_level(logging.INFO, logger=logger.name):
-            reports.append((timer.totals, timer.report(),
-                            caplog.records[-1].getMessage()))
-    assert reports[0] == reports[1]
-    assert reports[1][1].splitlines()[1].split() == ['decode', '0.74s']
 
 
 def _tiny_model(tmp_path):
