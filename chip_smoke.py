@@ -827,6 +827,18 @@ def scan_plans(torch):
                 'ptxas info    : ', '')))
 
 
+def traced_counters(fn, tmp):
+    """fn() with the program's tracer on (a `maybe_profile` block with a
+    cProfile file, no torch.profiler session): its result and the
+    tracer's counters."""
+    from cor_asv_ann_tpu_torch.utils import profiling
+    with profiling.maybe_profile(
+            profile_file=os.path.join(tmp, 'counters.prof')):
+        out = fn()
+        counters = profiling.snapshot()['counters']
+    return out, counters
+
+
 def kernel_device_ms(torch, fn, pattern):
     """{kernel name: (device ms, launches)} of one fn() call under
     torch.profiler, for the CUDA kernels whose name matches `pattern`."""
@@ -1104,7 +1116,11 @@ class StepCounter:
     its alignment row are kept (`probs_err`, `align_err`): that holds the
     K3 route's wiring (the window starts and the visible mask it is
     given) against the per-op route step by step, where whole searches
-    part at the first rounding."""
+    part at the first rounding.
+
+    It counts the step's Python calls, which a replayed CUDA graph of the
+    iteration does not make, so the beam runs op by op while it is
+    entered (`beam._BEAM_GRAPH = 'off'`)."""
 
     def __init__(self, compare=False):
         self.compare = compare
@@ -1114,6 +1130,7 @@ class StepCounter:
         self.calls = self.rows = self.positions = 0
         self.probs_err = self.align_err = 0.0
         self._beam, self._step = beam, beam.beam_decoder_step
+        self._graph, beam._BEAM_GRAPH = beam._BEAM_GRAPH, 'off'
 
         def counted(params, config, feedback, layer_states, aw, astart,
                     attended, *args, **kw):
@@ -1140,6 +1157,7 @@ class StepCounter:
 
     def __exit__(self, *exc):
         self._beam.beam_decoder_step = self._step
+        self._beam._BEAM_GRAPH = self._graph
 
 
 def beam_lines(s2s, lines, conf=None):
@@ -1280,6 +1298,33 @@ def beam_path(torch, dev, goldens, golden_corpus, tmp, launches_of):
         check(launches_of()['decode_step_gathered'] == 0,
               'the bf16 beam launched K3 on gathered windows: it reads them '
               'by index')
+        # the same batch on the route serving takes outside a
+        # StepCounter, the CUDA graph of the iteration: a first run
+        # captures its keys (K3's wrapper counts each capture's launch
+        # and its warm-ups'), a second replays them under the tracer;
+        # both serve the same lines and scores, and each iteration of the
+        # second is a replay or, where a key was declined, a K3 launch
+        # from Python: together as many as the op-by-op run's launches
+        before = launches_of()['decode_step']
+        out_g, _, sc_g, _ = beam_lines(bf, lines)
+        captured = launches_of()['decode_step'] - before
+        (out_r, _, sc_r, _), counters = traced_counters(
+            lambda: beam_lines(bf, lines), tmp)
+        replayed = counters.get('decoders.beam_graph_iterations', 0)
+        eager = launches_of()['decode_step'] - before - captured
+        check(out_g == out_r == out_k and sc_g == sc_r == sc_k,
+              'bf16 beam at B=%d: the CUDA graph of the iteration served '
+              'other lines or scores than the iteration op by op'
+              % batch_size)
+        check(captured > 0 and captured % (beam._GRAPH_WARMUP + 1) == 0,
+              'bf16 beam at B=%d: %d K3 launches in the captures'
+              % (batch_size, captured))
+        check(counters['decoders.beam_iterations'] == replayed + eager
+              == launched, 'bf16 beam at B=%d under the CUDA graph: %d '
+              'iterations, %d replays, %d K3 launches from Python; op by op '
+              '%d launches' % (batch_size,
+                               counters['decoders.beam_iterations'],
+                               replayed, eager, launched))
         # agreement with the float32 golden, counted over the distinct
         # lines of the batch (the B=256 batch repeats the 120 lines)
         want = golden_corpus['modes']['beam_r03_plain']['output']
@@ -1460,7 +1505,8 @@ def processor_path(torch, tmp, k3_launches):
         check(out == direct[case], 'in-process %s differs from the module '
               'run' % name)
     check(k3_launches() == 0, 'the f32 processor launched K3')
-    # bf16 through K3 under 'auto', timed; then once on the per-op route:
+    # bf16 through K3 under 'auto', counted op by op, then timed on the
+    # CUDA graph of the beam's iteration; then once on the per-op route:
     # the beam's bf16 bar is no fewer lines equal to the f32 golden than
     # the per-op route less 2, and than the JAX processor's bf16 beam
     # (the golden's glyph_beam_bfloat16_lines) less 2
@@ -1470,19 +1516,37 @@ def processor_path(torch, tmp, k3_launches):
     proc.s2s.compute = 'bfloat16'
     reps = 3
     with StepCounter() as steps:
-        out, times['bf16_beam_k3'] = timed_run(proc, 'bf16', reps)
+        out, _ = timed_run(proc, 'bf16', reps)
     launched = k3_launches()
     check(launched == steps.calls > 0, 'bf16 processor: %d launches of K3 '
           'in %d beam iterations' % (launched, steps.calls))
     check(steps.rows == STEP_ROWS['B32_r05'], 'bf16 processor: %d rows a '
           'step, K3 was checked and timed at %d'
           % (steps.rows, STEP_ROWS['B32_r05']))
+    out_g, times['bf16_beam_k3'] = timed_run(proc, 'bf16_graph', reps)
+    # one more run under the tracer: each of its iterations is a replay
+    # or, where a key was busy, a K3 launch from Python; together one
+    # run's share of the op-by-op launches (timed_run makes reps + 1)
+    traced = workspace('bf16_graph_traced')
+    before = k3_launches()
+    _, counters = traced_counters(lambda: proc.process_workspace(
+        traced, [grp_in], grp_out), tmp)
+    replayed = counters.get('decoders.beam_graph_iterations', 0)
+    eager = k3_launches() - before
+    check(out_g == out == outputs(traced), 'bf16 processor: the CUDA graph '
+          'of the beam\'s iteration wrote other pages')
+    check((replayed + eager) * (reps + 1) == launched
+          == counters['decoders.beam_iterations'] * (reps + 1),
+          'bf16 processor under the CUDA graph: %d replays and %d K3 '
+          'launches from Python in a run, op by op %d launches in %d runs'
+          % (replayed, eager, launched, reps + 1))
+    total = k3_launches()
     beam._BEAM_STEP_KERNEL = 'off'
     try:
         out_p, times['bf16_beam_per_op'] = timed_run(proc, 'bf16_op', 1)
     finally:
         beam._BEAM_STEP_KERNEL = 'auto'
-    check(k3_launches() == launched, 'the per-op bf16 processor launched K3')
+    check(k3_launches() == total, 'the per-op bf16 processor launched K3')
 
     def texts(pages_out):
         return [t for pid in sorted(pages_out)

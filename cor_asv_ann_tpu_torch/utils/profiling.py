@@ -69,6 +69,11 @@ class _Span:
         return False
 
 
+def profiler_running():
+    """Whether a ``torch.profiler`` session runs in the process."""
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
 class Tracer:
     """Spans and counters of the program, aggregated in memory by name:
     for each span its count, total seconds and self seconds (its time
@@ -122,7 +127,7 @@ class Tracer:
     def active(self):
         """Whether the tracer records now; a turn from off to on empties
         the record."""
-        on = self._forced > 0 or _autograd_profiler._is_profiler_enabled
+        on = self._forced > 0 or profiler_running()
         if on != self._live:
             self._live = on
             if on:

@@ -136,16 +136,24 @@ def test_decode_beam_variants_match_jax(case):
         _assert_same_search(got, want)
 
 
-def test_return_trace_matches_jax():
-    params, jc, tc = _model(7)
+@pytest.mark.parametrize('seed,depth', SEEDS)
+def test_return_trace_matches_jax(seed, depth):
+    """The records `_iteration` writes at the device's t (the trie's and
+    the trace's), the final reservoir, the bank and the results, against
+    the JAX search's, on every seed and depth of tests/test_beam.py."""
+    params, jc, tc = _model(seed, depth)
     bounds = dict(reservoir=32, expand=8, beam_width_in=6, beam_width_out=4)
     enc = make_onehot_batch(MAPPING, LINES, pad_to=T)
     src_len = np.full(len(LINES), T, np.int32)
-    want = jbeam.decode_beam(params, jc, jbeam.BeamParams(**bounds), enc, NL,
-                             src_len, return_trace=True)['trace']
-    got = beam.decode_beam(params_from_numpy(params, 'cpu'), tc,
-                           beam.BeamParams(**bounds), torch.from_numpy(enc),
-                           NL, src_len, return_trace=True)['trace']
+    want_out = jbeam.decode_beam(params, jc, jbeam.BeamParams(**bounds), enc,
+                                 NL, src_len, return_trace=True)
+    got_out = beam.decode_beam(params_from_numpy(params, 'cpu'), tc,
+                               beam.BeamParams(**bounds),
+                               torch.from_numpy(enc), NL, src_len,
+                               return_trace=True)
+    _assert_same_search(_np(got_out), {k: np.asarray(v) for k, v in
+                                       want_out.items() if k != 'trace'})
+    want, got = want_out['trace'], got_out['trace']
     assert set(got) == set(want)
     assert got['t'] == int(want['t'])
     steps = got['t']
@@ -160,6 +168,12 @@ def test_return_trace_matches_jax():
                                    atol=1e-5, err_msg=key)
     for key in ('nchars', 'is_fin'):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    for key in ('pro', 'cum'):
+        finite = np.isfinite(np.asarray(want[key]))
+        np.testing.assert_array_equal(np.isfinite(got[key].numpy()), finite)
+        np.testing.assert_allclose(got[key].numpy()[finite],
+                                   np.asarray(want[key])[finite], atol=1e-4,
+                                   err_msg=key)
 
 
 @pytest.mark.parametrize('depth,with_lm,mask_padding',
@@ -323,3 +337,180 @@ def test_step_kernel_flag():
         with _route(mode):
             assert beam._step_kernel_route(tparams, tc, False) is want
     assert fused_decode_step.launches == 0
+
+
+# the graph route (`beam._BEAM_GRAPH`): on the CPU its 'buffers' stand-in
+# runs the route's static inputs and state, loads, copies, clones and
+# cache, with each replay run op by op in place of a CUDA graph
+OTHER_LINES = ["gag.\n", "deaf cab.\n", "ice, hi.\n"]
+GRAPH_CASES = {'plain': {}, 'alignments': {}, 'lm_predict': {},
+               'mask_padding': dict(mask_padding=True), 'k3': {},
+               'depth3': {}}
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """An empty cache of the graph route, and the route's stand-in."""
+    monkeypatch.setattr(beam, '_GRAPHS', beam._GraphCache())
+    monkeypatch.setattr(beam, '_BEAM_GRAPH', 'buffers')
+    return beam._GRAPHS
+
+
+def _call(params, tc, bp, lines, mode='off', **kw):
+    enc = torch.from_numpy(make_onehot_batch(MAPPING, lines, pad_to=T))
+    src_len = np.array([len(line) for line in lines], np.int32)
+    with _route(mode):
+        return beam.decode_beam(params, tc, bp, enc, NL, src_len, **kw)
+
+
+def _assert_equal(got, want):
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+
+
+def _graph_case(case):
+    bounds = dict(reservoir=32, expand=8, beam_width_in=6, beam_width_out=4,
+                  lm_predict=case == 'lm_predict')
+    params, _, tc = _model(7, 3 if case == 'depth3' else 2,
+                           **GRAPH_CASES[case])
+    return (params_from_numpy(params, 'cpu'), tc, beam.BeamParams(**bounds),
+            'on' if case == 'k3' else 'off',
+            dict(return_alignments=case in ('alignments', 'mask_padding')))
+
+
+@pytest.mark.parametrize('case', list(GRAPH_CASES))
+def test_graph_route_buffers_equal_eager(graphs, monkeypatch, case):
+    """Two calls under one key with other inputs each equal a fresh call
+    of the eager route, bit for bit, and the first call's results are
+    unchanged by the second (none is a view of the route's buffers)."""
+    tparams, tc, bp, mode, kw = _graph_case(case)
+    first = _call(tparams, tc, bp, LINES, mode, **kw)
+    kept = {k: v.clone() for k, v in first.items()}
+    second = _call(tparams, tc, bp, OTHER_LINES, mode, **kw)
+    assert len(graphs._entries) == 1
+    monkeypatch.setattr(beam, '_BEAM_GRAPH', 'off')
+    _assert_equal(first, _call(tparams, tc, bp, LINES, mode, **kw))
+    _assert_equal(second, _call(tparams, tc, bp, OTHER_LINES, mode, **kw))
+    _assert_equal(first, kept)
+
+
+def test_graph_route_counts_replays_and_a_busy_entry_runs_eager(graphs):
+    """Under the tracer each iteration the route serves counts in
+    ``decoders.beam_graph_iterations``; a call that finds its key's entry
+    held by another runs eager, counts none there, and gives the same
+    results. A call with `return_trace` runs eager and makes no entry."""
+    from torch.profiler import ProfilerActivity, profile
+    from cor_asv_ann_tpu_torch.utils import profiling
+    tparams, tc, bp, mode, kw = _graph_case('plain')
+    beam._BEAM_GRAPH = 'off'
+    want = _call(tparams, tc, bp, LINES, **kw)
+    beam._BEAM_GRAPH = 'buffers'
+    traced = _call(tparams, tc, bp, LINES, return_trace=True, **kw)
+    assert not graphs._entries
+    runs = {}
+    for name in ('route', 'busy'):
+        entry = next(iter(graphs._entries.values()), None)
+        if name == 'busy':
+            assert entry.lock.acquire(blocking=False)
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                runs[name] = _call(tparams, tc, bp, LINES, **kw)
+            # read after the session, which the tracer then sees end
+            counters = profiling.snapshot()['counters']
+        finally:
+            if name == 'busy':
+                entry.lock.release()
+        _assert_equal(runs[name], want)
+        assert counters['decoders.beam_iterations'] == traced['trace']['t']
+        assert 'decoders.beam_graph_captures' not in counters
+        assert counters.get('decoders.beam_graph_iterations', 0) == (
+            counters['decoders.beam_iterations'] if name == 'route' else 0)
+    assert len(graphs._entries) == 1
+
+
+def test_graph_route_evicts_the_least_recently_used(graphs, monkeypatch):
+    """Under a budget that holds the entries of the last two of three
+    keys (the bank's width), the first key is evicted, then made again
+    in place of the second; the cache's bytes are its entries'; every
+    call equals the eager route's."""
+    tparams, tc, _, _, _ = _graph_case('plain')
+    bps = [beam.BeamParams(reservoir=32, expand=8, beam_width_in=6,
+                           beam_width_out=n) for n in (2, 3, 4, 2)]
+    for bp in bps[:3]:
+        _call(tparams, tc, bp, LINES)
+    sizes = [entry.nbytes for entry in graphs._entries.values()]
+    assert graphs.nbytes == sum(sizes) and sizes[0] < sizes[1] < sizes[2]
+    graphs.clear()
+    assert graphs.nbytes == 0 and not graphs._entries
+    graphs.max_bytes = sizes[1] + sizes[2]
+    outs = [_call(tparams, tc, bp, LINES) for bp in bps]
+    assert [next(x for x in key if isinstance(x, beam.BeamParams))
+            for key in graphs._entries] == [bps[2], bps[0]]
+    assert graphs.nbytes == sizes[2] + sizes[0]
+    monkeypatch.setattr(beam, '_BEAM_GRAPH', 'off')
+    for bp, got in zip(bps, outs):
+        _assert_equal(got, _call(tparams, tc, bp, LINES))
+
+
+def test_graph_route_runs_a_key_past_its_budget_eager(graphs, monkeypatch):
+    """A key whose static buffers alone pass the cache's budget makes no
+    entry, evicts none, and its call equals the eager route's."""
+    tparams, tc, bp, _, _ = _graph_case('plain')
+    wide = beam.BeamParams(reservoir=32, expand=8, beam_width_in=6,
+                           beam_width_out=3)
+    _call(tparams, tc, bp, LINES)
+    (entry,) = graphs._entries.values()
+    graphs.max_bytes = entry.nbytes
+    got = _call(tparams, tc, bp, OTHER_LINES, return_alignments=True)
+    assert list(graphs._entries.values()) == [entry]
+    assert graphs.nbytes == entry.nbytes
+    _call(tparams, tc, wide, LINES)
+    assert len(graphs._entries) == 1 and entry not in graphs._entries.values()
+    monkeypatch.setattr(beam, '_BEAM_GRAPH', 'off')
+    _assert_equal(got, _call(tparams, tc, bp, OTHER_LINES,
+                             return_alignments=True))
+
+
+def test_graph_route_under_threads(graphs):
+    """More threads than cores serve two keys at once, with a short
+    switch interval: every result equals the eager route's (a thread
+    that finds its key's entry held runs eager)."""
+    import os
+    import sys
+    import threading
+    tparams, tc, bp, _, _ = _graph_case('plain')
+    wide = beam.BeamParams(reservoir=32, expand=8, beam_width_in=6,
+                           beam_width_out=3)
+    cases = [(bp, LINES), (bp, OTHER_LINES), (wide, LINES)]
+    beam._BEAM_GRAPH = 'off'
+    want = [_call(tparams, tc, b, lines) for b, lines in cases]
+    beam._BEAM_GRAPH = 'buffers'
+    errors = []
+
+    def work(n):
+        try:
+            for i in range(4):
+                c = (n + i) % len(cases)
+                got = _call(tparams, tc, *cases[c])
+                for key in want[c]:
+                    if not torch.equal(got[key], want[c][key]):
+                        errors.append((n, i, key))
+        except Exception as exc:  # reported by the assertion below
+            errors.append(repr(exc))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(n,))
+                   for n in range((os.cpu_count() or 4) + 2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:5]
+    assert len(graphs._entries) == 2

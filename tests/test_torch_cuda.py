@@ -7,8 +7,11 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import contextlib
 import dataclasses
 import functools
+import json
+import os
 
 import numpy as np
 import pytest
@@ -287,15 +290,19 @@ def test_fused_dispatch_counts_launches(dev):
     assert lstm_step_fused.launches - before >= 2
 
 
-def test_long_lines_skip_k1_take_k3(dev, monkeypatch):
+def test_long_lines_skip_k1_take_k3(dev, monkeypatch, tmp_path):
     """bfloat16 greedy serving sends buckets up to 256 to K1 and longer
     ones to the windowed decoder; the bfloat16 beam steps through K3 in
     every bucket, since its window positions, which follow the JAX
     package's (tests/test_torch_long_lines.py), are computed outside
-    K3: one launch an iteration at the 256 and the 384 bucket."""
+    K3: one launch an iteration at the 256 and the 384 bucket, op by op
+    and in the CUDA graph of the iteration, which serves the same
+    lines."""
+    from torch.profiler import ProfilerActivity, profile
     from cor_asv_ann_tpu_torch.models import beam
     from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
     from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
+    from cor_asv_ann_tpu_torch.utils import profiling
     mapping = CharMapping.from_texts(["abcdefgh .,\n"])
     s2s = Sequence2Sequence(device=dev)
     s2s.width, s2s.depth, s2s.mapping = 64, 2, mapping
@@ -305,22 +312,50 @@ def test_long_lines_skip_k1_take_k3(dev, monkeypatch):
     pt = s2s._infer_params()
     assert beam._step_kernel_route(pt, s2s.config, False)
     step = beam.beam_decoder_step
-    iterations = []
-    monkeypatch.setattr(beam, 'beam_decoder_step', lambda *a, **kw:
-                        iterations.append(1) or step(*a, **kw))
     for chars, bucket, k1 in ((200, 256, 1), (300, 384, 0)):
         lines = [('abba dig. ' * 40)[:chars] + '\n'] * 2
         before = dlk.decode_loop.launches
         out, _, _, _ = s2s.correct_lines(lines, return_alignments=False)
         assert len(out) == 2
         assert dlk.decode_loop.launches - before == k1, bucket
-        before = dsk.fused_decode_step_indexed.launches
-        del iterations[:]
-        out, _, _, _ = s2s.correct_lines(lines, fast=False, greedy=False,
-                                         return_alignments=False)
+        # op by op, the iterations counted by the step's Python calls
+        iterations = []
+        with monkeypatch.context() as m:
+            m.setattr(beam, '_BEAM_GRAPH', 'off')
+            m.setattr(beam, 'beam_decoder_step', lambda *a, **kw:
+                      iterations.append(1) or step(*a, **kw))
+            before = dsk.fused_decode_step_indexed.launches
+            out, _, _, _ = s2s.correct_lines(lines, fast=False, greedy=False,
+                                             return_alignments=False)
+            launched = dsk.fused_decode_step_indexed.launches - before
         assert len(out) == 2 and all(o.endswith('\n') for o in out)
-        launched = dsk.fused_decode_step_indexed.launches - before
         assert launched == len(iterations) > 0, bucket
+        # the graph route: a first call captures, the second replays
+        # under the profiler, whose trace holds the kernels a replay runs
+        assert s2s.correct_lines(lines, fast=False, greedy=False,
+                                 return_alignments=False)[0] == out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got, _, _, _ = s2s.correct_lines(lines, fast=False, greedy=False,
+                                             return_alignments=False)
+            torch.cuda.synchronize()
+        counters = profiling.snapshot()['counters']
+        assert got == out, bucket
+        assert counters['decoders.beam_graph_iterations'] == len(iterations)
+        assert _kernels_in(prof, tmp_path, 'step_readout_kernel') == \
+            len(iterations), bucket
+
+
+def _kernels_in(prof, tmp_path, name):
+    """The kernels whose name holds `name` in a finished torch.profiler
+    session's device trace: the kernels of a replayed CUDA graph count,
+    which launch no wrapper."""
+    path = str(tmp_path / 'kernels_trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    os.remove(path)
+    return sum(1 for e in events
+               if e.get('cat') == 'kernel' and name in e.get('name', ''))
 
 
 def _scan_inputs(dev, dtype, T, B, N, seed=0):
@@ -910,6 +945,206 @@ def test_beam_through_the_step_kernel(dev, compute):
     # bfloat16 parameters take the kernel under 'auto' as well
     if compute == 'bfloat16':
         assert beam._step_kernel_route(pt, config, False)
+
+
+# the beam's iteration as a CUDA graph (models/beam.py `_BEAM_GRAPH`),
+# against the iteration op by op, on the repository's two trained models
+_GRAPH_MODELS = {'w64': 'reference_trained.w64.h5',
+                 'flagship': 'flagship.d2.w512.synthetic.h5'}
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_server(model, compute):
+    """The API over a model of testmodels/ on the card, at the OCR-D
+    processor's rejection threshold 0.5 (R = 64, K = 48)."""
+    from cor_asv_ann_tpu_torch.models.api import Sequence2Sequence
+    path = os.path.join(_ROOT, 'testmodels', _GRAPH_MODELS[model])
+    s2s = Sequence2Sequence(device=torch.device('cuda'))
+    s2s.load_config(path)
+    s2s.configure()
+    s2s.load_weights(path)
+    s2s.compute = compute
+    s2s.rejection_threshold = 0.5
+    return s2s
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_corpus(model):
+    """Lines of the model's own corpus: the artifact's sources, the
+    flagship's golden corpus."""
+    if model == 'w64':
+        with open(os.path.join(_ROOT, 'testmodels',
+                               'reference_trained.goldens.json')) as f:
+            lines = json.load(f)['sources']
+    else:
+        with open(os.path.join(_ROOT, 'tests', 'golden_corpus.json')) as f:
+            lines = json.load(f)['inputs']['plain']
+    return tuple(line.rstrip() for line in lines)
+
+
+def _graph_lines(model, B, T, offset):
+    """B lines of the model's corpus from `offset` on, each filled up
+    with the lines after it to T - 4 characters."""
+    corpus = _graph_corpus(model)
+    out = []
+    for i in range(B):
+        j, line = offset + i, ''
+        while len(line) < T - 4:
+            line += corpus[j % len(corpus)] + ' '
+            j += 1
+        out.append(line[:T - 4] + '\n')
+    return out
+
+
+def _graph_call(s2s, lines, T, alignments, mode, return_trace=False,
+                prof_dir=None):
+    """decode_beam of `lines` in the bucket T with `_BEAM_GRAPH = mode`:
+    its results, and the K3 launches its wrapper counted or, with
+    `prof_dir`, the K3 calls in the call's device trace (one readout
+    kernel a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    from cor_asv_ann_tpu_torch.models import beam
+    from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
+    enc = torch.from_numpy(lines_to_index_batch(
+        s2s.mapping, lines, pad_to=T, bucketed=False)).to('cuda')
+    src_len = np.array([len(line) for line in lines], np.int32)
+    before = dsk.fused_decode_step_indexed.launches
+    route, beam._BEAM_GRAPH = beam._BEAM_GRAPH, mode
+    try:
+        with (profile(activities=[ProfilerActivity.CUDA])
+              if prof_dir else contextlib.nullcontext()) as prof:
+            out = beam.decode_beam(s2s._infer_params(), s2s.config,
+                                   s2s._beam_params(), enc,
+                                   s2s.mapping.get('\n'), src_len,
+                                   return_alignments=alignments,
+                                   return_trace=return_trace)
+            torch.cuda.synchronize()
+    finally:
+        beam._BEAM_GRAPH = route
+    if prof_dir:
+        return out, _kernels_in(prof, prof_dir, 'step_readout_kernel')
+    return out, dsk.fused_decode_step_indexed.launches - before
+
+
+def _assert_beam_equal(got, want):
+    """Every result bit for bit: the graph runs the iteration's kernels
+    on the same inputs in the same order."""
+    assert set(got) - {'trace'} == set(want) - {'trace'}
+    for key in got:
+        if key != 'trace':
+            assert torch.equal(got[key], want[key]), (
+                key, float((got[key].float() - want[key].float()).abs()
+                           .max()))
+
+
+@pytest.mark.parametrize('B,T', [(8, 32), (8, 64), (32, 32), (32, 64),
+                                 (64, 32), (64, 64), (8, 256), (8, 384)])
+@pytest.mark.parametrize('alignments', [False, True])
+@pytest.mark.parametrize('model,compute', [
+    ('w64', 'float32'), ('w64', 'bfloat16'), ('flagship', 'float32'),
+    ('flagship', 'bfloat16')])
+def test_beam_graph_equals_eager(dev, tmp_path, model, compute, alignments,
+                                 B, T):
+    """decode_beam through the CUDA graph of its iteration ('auto')
+    against the iteration op by op ('off'), float32 on the per-op route
+    and bfloat16 through K3, in short buckets and in the long ones
+    (S = 512 and 768 trie steps, K3 on long windows): two calls under
+    one key with other lines each equal a fresh eager call bit for bit;
+    the first call's results are unchanged by the second; one entry,
+    captured. K3's wrapper counts the launches of the capture and its
+    warm-up and none of the replays; the second call's device trace
+    holds as many K3 calls as the eager route launches (one an
+    iteration in bfloat16, none in float32)."""
+    from cor_asv_ann_tpu_torch.models import beam
+    beam._GRAPHS.clear()
+    s2s = _graph_server(model, compute)
+    per_iteration = int(compute == 'bfloat16')
+    lines = [_graph_lines(model, B, T, 0), _graph_lines(model, B, T, 57)]
+    first, k3_first = _graph_call(s2s, lines[0], T, alignments, 'auto')
+    assert k3_first == (beam._GRAPH_WARMUP + 1) * per_iteration
+    kept = {k: v.clone() for k, v in first.items()}
+    second, k3_second = _graph_call(s2s, lines[1], T, alignments, 'auto',
+                                    prof_dir=tmp_path)
+    entries = list(beam._GRAPHS._entries.values())
+    assert len(entries) == 1 and entries[0].graph is not None
+    for got, batch in ((first, lines[0]), (second, lines[1])):
+        want, k3_want = _graph_call(s2s, batch, T, alignments, 'off',
+                                    return_trace=True)
+        _assert_beam_equal(got, want)
+        assert k3_want == want['trace']['t'] * per_iteration
+    assert k3_second == k3_want
+    _assert_beam_equal(first, kept)
+    beam._GRAPHS.clear()
+
+
+def test_beam_graph_is_not_captured_under_the_profiler(dev):
+    """A key that would need a capture while torch.profiler runs runs op
+    by op, and makes no entry; a key captured before replays under the
+    profiler; both equal the eager route."""
+    from torch.profiler import ProfilerActivity, profile
+    from cor_asv_ann_tpu_torch.models import beam
+    beam._GRAPHS.clear()
+    s2s = _graph_server('w64', 'float32')
+    lines = _graph_lines('w64', 32, 64, 0)
+    want, _ = _graph_call(s2s, lines, 64, True, 'off')
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got, _ = _graph_call(s2s, lines, 64, True, 'auto')
+    assert not beam._GRAPHS._entries
+    _assert_beam_equal(got, want)
+    _graph_call(s2s, lines, 64, True, 'auto')
+    (entry,) = beam._GRAPHS._entries.values()
+    assert entry.graph is not None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got, _ = _graph_call(s2s, lines, 64, True, 'auto')
+    _assert_beam_equal(got, want)
+    assert list(beam._GRAPHS._entries.values()) == [entry]
+    beam._GRAPHS.clear()
+
+
+def test_beam_graph_two_threads_serve_one_key(dev, tmp_path):
+    """Two threads serve one key at once: the one that finds its entry
+    held runs op by op. Both equal fresh eager calls, and the tracer
+    counts as graph iterations those of the other thread alone."""
+    import threading
+    from cor_asv_ann_tpu_torch.models import beam
+    from cor_asv_ann_tpu_torch.utils import profiling
+    beam._GRAPHS.clear()
+    s2s = _graph_server('flagship', 'float32')
+    batches = [_graph_lines('flagship', 32, 32, n) for n in (0, 40)]
+    want = [_graph_call(s2s, batch, 32, False, 'off', return_trace=True)[0]
+            for batch in batches]
+    _graph_call(s2s, batches[0], 32, False, 'auto')
+    (entry,) = beam._GRAPHS._entries.values()
+    started, other_done = threading.Event(), threading.Event()
+    replay = entry.replay
+
+    def held_replay():
+        # the first replay waits until the other thread has finished
+        if not started.is_set():
+            started.set()
+            other_done.wait(300)
+        replay()
+    entry.replay = held_replay
+    got = {}
+
+    def run_first():
+        got[0] = _graph_call(s2s, batches[0], 32, False, 'auto')[0]
+    with profiling.maybe_profile(profile_file=str(tmp_path / 'stats')):
+        thread = threading.Thread(target=run_first)
+        thread.start()
+        assert started.wait(300)
+        got[1] = _graph_call(s2s, batches[1], 32, False, 'auto')[0]
+        other_done.set()
+        thread.join(300)
+        counters = profiling.snapshot()['counters']
+    assert not thread.is_alive()
+    for n in (0, 1):
+        _assert_beam_equal(got[n], want[n])
+    steps = [int(w['trace']['t']) for w in want]
+    assert counters['decoders.beam_graph_iterations'] == steps[0]
+    assert counters['decoders.beam_iterations'] == steps[0] + steps[1]
+    beam._GRAPHS.clear()
 
 
 # the multi-device layer on one card (tests/torch_mesh_worker.py): a
