@@ -282,43 +282,74 @@ def scan_tolerance(torch, dt):
             else dict(atol=2e-2, rtol=2e-2))
 
 
+# the masked cases (T, B, N): the benchmark's training cell (d2/w128, T
+# up to 96), train_path's own shape (d2/w512, B = 256, T = 64) and a
+# small odd one
+MASKED_SCAN_SHAPES = ((96, 256, 128), (64, 256, 512), (7, 5, 40))
+
+
+def _scan_cases():
+    """(T, B, N, masked) for the K4/K5 phases."""
+    return ([shape + (False,) for shape in SCAN_SHAPES]
+            + [shape + (True,) for shape in MASKED_SCAN_SHAPES])
+
+
+def _padding_mask(torch, dev, T, B, seed):
+    """(T, B) uint8, 1 at valid steps: right padding at random lengths,
+    row 0 whole, row 1 all padding, row 2 with gaps inside."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, T + 1, (B,), generator=gen)
+    m = torch.arange(T)[:, None] < lengths[None]
+    m[:, 0] = True
+    m[:, 1] = False
+    m[:, 2] = torch.arange(T) % 3 != 1
+    return m.to(torch.uint8).to(dev)
+
+
 def phase_k4(torch, dev):
-    """K4 against its plain version, both dtypes, both directions."""
+    """K4 against its plain version, both dtypes, both directions, with
+    and without a padding mask."""
     from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         tol = scan_tolerance(torch, dt)
-        for T, B, N in SCAN_SHAPES:
+        for T, B, N, masked in _scan_cases():
             for reverse in (False, True):
                 args = _scan_inputs(torch, dev, dt, T, B, N, 2)
-                got = lsk.lstm_scan_fwd(*args, reverse)
+                mask = _padding_mask(torch, dev, T, B, 9) if masked else None
+                got = lsk.lstm_scan_fwd(*args, reverse, mask)
                 torch.cuda.synchronize()
-                want = lsk.lstm_scan_fwd_reference(*args, reverse)
+                want = lsk.lstm_scan_fwd_reference(*args, reverse, mask)
                 err = 0.0
                 for g, w in zip(got, want):
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
-                errs[(_dtype_name(dt), T, B, N, reverse)] = err
-                print('K4 %-8s T=%-3d B=%-3d N=%-3d reverse=%d max|kernel-'
-                      'plain| = %.3g (atol %g rtol %g)'
-                      % (_dtype_name(dt), T, B, N, reverse, err,
+                errs[(_dtype_name(dt), T, B, N, reverse, masked)] = err
+                print('K4 %-8s T=%-3d B=%-3d N=%-3d reverse=%d masked=%d '
+                      'max|kernel-plain| = %.3g (atol %g rtol %g)'
+                      % (_dtype_name(dt), T, B, N, reverse, masked, err,
                          tol['atol'], tol['rtol']))
     return errs
 
 
 def phase_k5(torch, dev):
     """K5 against its plain version on the states the plain K4 saved,
-    then LstmScan against autograd through the plain lstm_scan."""
+    with and without a padding mask, then LstmScan against autograd
+    through the plain lstm_scan."""
     from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
     from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         tol = scan_tolerance(torch, dt)
-        for T, B, N in SCAN_SHAPES:
+        for T, B, N, masked in _scan_cases():
             for reverse in (False, True):
                 zx, R, h0, c0 = _scan_inputs(torch, dev, dt, T, B, N, 3)
+                mask = (_padding_mask(torch, dev, T, B, 10) if masked
+                        else None)
+                # masked, hs and cs hold the carry at padded steps, so the
+                # shifted buffers are the states each step started from
                 hs, cs, _, _ = lsk.lstm_scan_fwd_reference(zx, R, h0, c0,
-                                                           reverse)
+                                                           reverse, mask)
                 hprev = _shift(torch, hs, h0, reverse)
                 cprev = _shift(torch, cs, c0, reverse)
                 gen = torch.Generator().manual_seed(4)
@@ -327,7 +358,8 @@ def phase_k5(torch, dev):
                 g_hs, g_hT, g_cT = (
                     (torch.randn(*shape, generator=gen) * 0.1).to(dt).to(dev)
                     for shape in ((T, B, N), (B, N), (B, N)))
-                args = (g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse)
+                args = (g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse,
+                        mask)
                 got = lsk.lstm_scan_bwd(*args)
                 torch.cuda.synchronize()
                 want = lsk.lstm_scan_bwd_reference(*args)
@@ -339,10 +371,10 @@ def phase_k5(torch, dev):
                                                w.float() / scale, **tol)
                     err = max(err, ((g.float() - w.float()).abs().max()
                                     / scale).item())
-                errs[(_dtype_name(dt), T, B, N, reverse)] = err
-                print('K5 %-8s T=%-3d B=%-3d N=%-3d reverse=%d max|kernel-'
-                      'plain|/scale = %.3g (atol %g rtol %g)'
-                      % (_dtype_name(dt), T, B, N, reverse, err,
+                errs[(_dtype_name(dt), T, B, N, reverse, masked)] = err
+                print('K5 %-8s T=%-3d B=%-3d N=%-3d reverse=%d masked=%d '
+                      'max|kernel-plain|/scale = %.3g (atol %g rtol %g)'
+                      % (_dtype_name(dt), T, B, N, reverse, masked, err,
                          tol['atol'], tol['rtol']))
     # the autograd.Function against autograd through the plain scan, f32
     B, T, D, N = 64, 32, 512, 512
@@ -607,13 +639,52 @@ def long_line_steps(torch, dev, data, batch, launches_of):
     return report
 
 
+def masked_route_gaps(torch, dev, s2s, batch):
+    """A mask_padding model's loss and gradients on one batch with the
+    training scans on K4/K5 (`_FUSED_TRAIN_SCAN` 'auto') against the same
+    step on the step-by-step masked scan ('off'), float32, with the same
+    dropout draws: the loss's relative gap and the largest gradient gap
+    relative to its leaf's scale (at least 1e-4 of the largest gradient:
+    some leaves of a fresh model get almost none)."""
+    from cor_asv_ann_tpu_torch.models import seq2seq
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
+                                                     tree_leaves, tree_map)
+    tensors = [torch.as_tensor(a).to(dev) for a in batch]
+    got = {}
+    for mode in ('auto', 'off'):
+        seq2seq._FUSED_TRAIN_SCAN = mode
+        try:
+            params = tree_map(lambda t: t.requires_grad_(),
+                              params_from_numpy(s2s.params, dev))
+            loss = T.loss_fn(params, s2s.config, *tensors,
+                             torch.Generator().manual_seed(3))
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        finally:
+            seq2seq._FUSED_TRAIN_SCAN = 'auto'
+        got[mode] = float(loss.detach()), grads
+    (l_on, g_on), (l_off, g_off) = got['auto'], got['off']
+    loss_gap = abs(l_on - l_off) / abs(l_off)
+    top = max(r.abs().max().item() for r in g_off)
+    grad_gap = 0.0
+    for g, r in zip(g_on, g_off):
+        scale = max(r.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(g / scale, r / scale, rtol=2e-4,
+                                   atol=2e-5)
+        grad_gap = max(grad_gap, ((g - r).abs().max() / scale).item())
+    check(loss_gap <= 1e-6, 'mask_padding float32: the loss on K4/K5 is %r, '
+          'on the masked plain scan %r' % (l_on, l_off))
+    return loss_gap, grad_gap
+
+
 def train_path(torch, dev, tmp, launches_of):
     """The training path at width 512, depth 2, batch 256: train_steps in
     float32 and bfloat16 under both padding modes (without masked padding
-    through the fused teacher kernels), steps at T = Td = 128 with those
-    kernels on and off, then train() for one epoch, save(), reload and
-    serve from the file. Returns per-regime step times, peak memory and
-    launch counts."""
+    through the fused teacher kernels; with it, float32, the loss and
+    gradients held against the masked plain scan), steps at T = Td = 128
+    with those kernels on and off, then train() for one epoch, save(),
+    reload and serve from the file. Returns per-regime step times, peak
+    memory and launch counts."""
     import numpy as np
     from cor_asv_ann_tpu_torch.models import train as T
     from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
@@ -625,12 +696,12 @@ def train_path(torch, dev, tmp, launches_of):
     report = {}
     steps = 4
     for keras_padding in (False, True):
-        # what the configuration implies: with masked padding only the
-        # lower decoder layer's scan is unmasked and the top layer stays
-        # on the dense body; without, the two directions of encoder
+        # what the configuration implies: the two directions of encoder
         # layer 1, encoder layer 2 and the lower decoder layer scan
-        # through K4/K5 and the top layer runs through K6/K7
-        scans, teacher = (4, 1) if keras_padding else (1, 0)
+        # through K4/K5 either way (the encoder's with its padding mask);
+        # without masked padding the top layer runs through K6/K7, with
+        # it the top layer stays on the dense body
+        scans, teacher = (4, 1) if keras_padding else (4, 0)
         for compute in ('float32', 'bfloat16'):
             s2s = new_trainer(dev, data, keras_padding, compute)
             sources, confs, targets, _ = next(gen_line_batches(
@@ -665,6 +736,18 @@ def train_path(torch, dev, tmp, launches_of):
             check(eval_after < eval_before, '%s: loss did not fall: %s -> '
                   '%s' % (name, eval_before, eval_after))
             per_step = {k: (after[k] - before[k]) / steps for k in after}
+            gaps = {}
+            if not keras_padding and compute == 'float32':
+                # the masked encoder's scans on K4/K5 against the same
+                # step on the masked plain scan
+                loss_gap, grad_gap = masked_route_gaps(torch, dev, s2s,
+                                                       batch)
+                gaps = dict(route_off_loss_gap=loss_gap,
+                            route_off_grad_gap=grad_gap)
+                print('train_step %s: K4/K5 against the masked plain scan, '
+                      'loss gap %.3g (relative, bar 1e-6), gradient gap / '
+                      'scale %.3g (rtol 2e-4 atol 2e-5)'
+                      % (name, loss_gap, grad_gap))
             check(per_step == {'lstm_scan_fwd': scans,
                                'lstm_scan_bwd': scans,
                                'teacher_fwd': teacher,
@@ -676,7 +759,7 @@ def train_path(torch, dev, tmp, launches_of):
                 step_ms=min(times[1:]), first_step_ms=times[0],
                 peak_gib=peak, eval_loss_before=eval_before,
                 eval_loss_after=eval_after, train_losses=losses,
-                launches_per_step=per_step,
+                launches_per_step=per_step, **gaps,
                 shape='B=%d T=%d Td=%d' % (batch[0].shape[0],
                                            batch[0].shape[1],
                                            batch[1].shape[1]))

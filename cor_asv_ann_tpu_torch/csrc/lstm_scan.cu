@@ -15,6 +15,14 @@
 //     dz = [dc*g*i(1-i), dc*cprev[t]*f(1-f), dc*i*(1-g^2), dh*tanh(c)*o(1-o)]
 //     dzx[t] = r(dz);  dh = r(dz).R^T (float32);  dc = dc*f;  dh0, dc0 at the end
 //
+// An optional padding mask (T, B) of bytes gives both the semantics of the JAX
+// package's ops/lstm.py:lstm_scan(mask=): at a step whose byte is 0 K4 passes
+// the row's carry on unchanged (hs[t], cs[t] hold the carry, so the final state
+// is the carry after the last valid step) and K5 writes dzx[t] = 0, adds no
+// cotangent of hs[t] and passes the carried dh, dc on unchanged. The zeroed
+// outputs of masked steps are the caller's (ops/lstm_scan_kernel.py). Without
+// a mask (a null pointer) no step loads a byte.
+//
 // The input projection and the weight gradient hprev^T.dzx stay outside, as in
 // the JAX package. The h.R and dz.R^T products are computed here.
 //
@@ -109,6 +117,7 @@ template <typename T> struct Smem {
 
 template <typename T> struct FwdArgs {
   const T *zx, *R, *h0, *c0;
+  const uint8_t* mask;  // (T, B), 0 where a row's step is padding; or null
   T *hs, *cs, *hT, *cT;
   int* bar;
   int Tn, B, N, reverse, row0, nrows;
@@ -117,6 +126,7 @@ template <typename T> struct FwdArgs {
 
 template <typename T> struct BwdArgs {
   const T *g_hs, *g_hT, *g_cT, *zx, *R, *hprev, *cprev, *cs;
+  const uint8_t* mask;
   T* dzx;
   float *dh0, *dc0;
   int* bar;
@@ -205,11 +215,18 @@ __global__ void __launch_bounds__(NT) lstm_scan_fwd_kernel(const FwdArgs<T> a) {
         if (e >= pl.nr * US || j >= pl.nu) continue;
         const int row = pl.rb + r, u = pl.u0 + j;
         const size_t at = (size_t)t * a.B + row;
-        float ig, fg, gg, og;
-        gates<T>(zxv[k], sm.z + (size_t)r * 4 * US, US, j, ig, fg, gg, og);
-        const float cn = rnd<T>(rnd<T>(fg * sm.s1[e]) + rnd<T>(ig * gg));
-        const float hn = rnd<T>(og * rnd<T>(tanhf(cn)));
-        sm.s1[e] = cn;
+        float cn, hn;
+        if (a.mask && !a.mask[at]) {
+          // padding: the carry passes on (h of the unit as the product read it)
+          cn = sm.s1[e];
+          hn = to_f<T>(h[(size_t)r * N + u]);
+        } else {
+          float ig, fg, gg, og;
+          gates<T>(zxv[k], sm.z + (size_t)r * 4 * US, US, j, ig, fg, gg, og);
+          cn = rnd<T>(rnd<T>(fg * sm.s1[e]) + rnd<T>(ig * gg));
+          hn = rnd<T>(og * rnd<T>(tanhf(cn)));
+          sm.s1[e] = cn;
+        }
         a.hs[at * N + u] = from_f<T>(hn);
         a.cs[at * N + u] = from_f<T>(cn);
         if (last) {
@@ -249,11 +266,19 @@ __global__ void __launch_bounds__(NT) lstm_scan_bwd_kernel(const BwdArgs<T> a) {
     stage_rows<T>(dst, ldd, a.R + (size_t)pl.u0 * N4, N4, US, pl.nu, k0, kc, N4);
     cp_async_wait<0>();
   };
-  // dh = r(dz of the step processed before).R^T for the block's units
+  // dh = r(dz of the step processed before).R^T for the block's units; a row
+  // that step held as padding takes back the carry it parked in dh0 (each
+  // element stays with the thread e % NT, here as in the gate loop)
   auto dh_product = [&](int n_done, int t_done) {
     group_wait(pl.counter, n_done * p.S);
     product<T>(a.dzx + ((size_t)t_done * a.B + pl.rb) * N4, N4, pl.Mp, pl.nr, N4, US, sm.rr,
                ldrr, stage_rows_r, sm.a, sm.a2, sm.bst, p.KC, sm.part, dh_s, US);
+    if (!a.mask) return;
+    for (int e = threadIdx.x; e < pl.nr * US; e += NT) {
+      const int r = e / US, j = e % US;
+      if (j < pl.nu && !a.mask[(size_t)t_done * a.B + pl.rb + r])
+        dh_s[e] = a.dh0[(size_t)(pl.rb + r) * N + pl.u0 + j];
+    }
   };
   int t_done = 0;
   for (int i = 0; i < a.Tn; ++i) {
@@ -281,6 +306,15 @@ __global__ void __launch_bounds__(NT) lstm_scan_bwd_kernel(const BwdArgs<T> a) {
         const int e = e0 + k * NT, r = e / US, j = e % US;
         if (e >= pl.nr * US || j >= pl.nu) continue;
         const size_t at = (size_t)t * a.B + pl.rb + r;
+        T* dz = a.dzx + at * N4 + pl.u0 + j;
+        if (a.mask && !a.mask[at]) {
+          // padding: no gradient enters z, dc stays, dh is parked in dh0
+          // until the product below has overwritten the row
+#pragma unroll
+          for (int g = 0; g < 4; ++g) dz[g * N] = from_f<T>(0.0f);
+          a.dh0[(size_t)(pl.rb + r) * N + pl.u0 + j] = dh_s[e];
+          continue;
+        }
         float ig, fg, gg, og;
         gates<T>(zxv[k], sm.z + (size_t)r * 4 * US, US, j, ig, fg, gg, og);
         const float th = tanhf(csv[k]);
@@ -290,7 +324,6 @@ __global__ void __launch_bounds__(NT) lstm_scan_bwd_kernel(const BwdArgs<T> a) {
         const float d_i = dc * gg;
         const float d_g = dc * ig;
         const float d_f = dc * cpv[k];
-        T* dz = a.dzx + at * N4 + pl.u0 + j;
         dz[0] = from_f<T>(d_i * ig * (1.0f - ig));
         dz[N] = from_f<T>(d_f * fg * (1.0f - fg));
         dz[2 * N] = from_f<T>(d_g * (1.0f - gg * gg));
@@ -432,28 +465,28 @@ cudaError_t launch(int kind, A args, int B, const Plan& p, cudaStream_t s) {
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* zx, const void* R, const void* h0, const void* c0, void* hs,
-                       void* cs, void* hT, void* cT, int* bar, int Tn, int B, int N, int reverse,
-                       int br, int us, cudaStream_t s) {
+cudaError_t launch_fwd(const void* zx, const void* R, const void* h0, const void* c0,
+                       const void* mask, void* hs, void* cs, void* hT, void* cT, int* bar, int Tn,
+                       int B, int N, int reverse, int br, int us, cudaStream_t s) {
   Plan p;
   cudaError_t err = make_plan<T>(0, B, N, br, us, &p);
   if (err != cudaSuccess) return err;
-  FwdArgs<T> a{(const T*)zx, (const T*)R, (const T*)h0, (const T*)c0, (T*)hs, (T*)cs, (T*)hT,
-               (T*)cT, bar, Tn, B, N, reverse, 0, 0, p};
+  FwdArgs<T> a{(const T*)zx, (const T*)R, (const T*)h0, (const T*)c0, (const uint8_t*)mask,
+               (T*)hs, (T*)cs, (T*)hT, (T*)cT, bar, Tn, B, N, reverse, 0, 0, p};
   return launch<T>(0, a, B, p, s);
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* g_hs, const void* g_hT, const void* g_cT, const void* zx,
                        const void* R, const void* hprev, const void* cprev, const void* cs,
-                       void* dzx, void* dh0, void* dc0, int* bar, int Tn, int B, int N,
-                       int reverse, int br, int us, cudaStream_t s) {
+                       const void* mask, void* dzx, void* dh0, void* dc0, int* bar, int Tn, int B,
+                       int N, int reverse, int br, int us, cudaStream_t s) {
   Plan p;
   cudaError_t err = make_plan<T>(1, B, N, br, us, &p);
   if (err != cudaSuccess) return err;
   BwdArgs<T> a{(const T*)g_hs, (const T*)g_hT, (const T*)g_cT, (const T*)zx, (const T*)R,
-               (const T*)hprev, (const T*)cprev, (const T*)cs, (T*)dzx, (float*)dh0,
-               (float*)dc0, bar, Tn, B, N, reverse, 0, 0, p};
+               (const T*)hprev, (const T*)cprev, (const T*)cs, (const uint8_t*)mask, (T*)dzx,
+               (float*)dh0, (float*)dc0, bar, Tn, B, N, reverse, 0, 0, p};
   return launch<T>(1, a, B, p, s);
 }
 
@@ -486,36 +519,38 @@ extern "C" int lstm_scan_plan(int kind, int dtype, int B, int N, int br, int us,
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. `bar`: ceil(B/16) ints, zero. br, us: 0
-// (the launcher's plan) or imposed rows per group and units per slice. Both
-// return the CUDA error of the launch.
+// dtype: 0 = float32, 1 = bfloat16. `mask`: null, or (T, B) bytes, 0 at a
+// padded step. `bar`: ceil(B/16) ints, zero. br, us: 0 (the launcher's plan)
+// or imposed rows per group and units per slice. Both return the CUDA error of
+// the launch.
 extern "C" int lstm_scan_fwd_launch(int dtype, const void* zx, const void* R, const void* h0,
-                                    const void* c0, void* hs, void* cs, void* hT, void* cT,
-                                    void* bar, int Tn, int B, int N, int reverse, int br, int us,
-                                    void* stream) {
+                                    const void* c0, const void* mask, void* hs, void* cs,
+                                    void* hT, void* cT, void* bar, int Tn, int B, int N,
+                                    int reverse, int br, int us, void* stream) {
   if (!shapes_ok(Tn, B, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_fwd<float>(zx, R, h0, c0, hs, cs, hT, cT, (int*)bar, Tn, B, N, reverse,
-                                  br, us, s);
+    return (int)launch_fwd<float>(zx, R, h0, c0, mask, hs, cs, hT, cT, (int*)bar, Tn, B, N,
+                                  reverse, br, us, s);
   if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(zx, R, h0, c0, hs, cs, hT, cT, (int*)bar, Tn, B, N,
-                                          reverse, br, us, s);
+    return (int)launch_fwd<__nv_bfloat16>(zx, R, h0, c0, mask, hs, cs, hT, cT, (int*)bar, Tn, B,
+                                          N, reverse, br, us, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int lstm_scan_bwd_launch(int dtype, const void* g_hs, const void* g_hT,
                                     const void* g_cT, const void* zx, const void* R,
                                     const void* hprev, const void* cprev, const void* cs,
-                                    void* dzx, void* dh0, void* dc0, void* bar, int Tn, int B,
-                                    int N, int reverse, int br, int us, void* stream) {
+                                    const void* mask, void* dzx, void* dh0, void* dc0, void* bar,
+                                    int Tn, int B, int N, int reverse, int br, int us,
+                                    void* stream) {
   if (!shapes_ok(Tn, B, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch_bwd<float>(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, dzx, dh0, dc0,
-                                  (int*)bar, Tn, B, N, reverse, br, us, s);
+    return (int)launch_bwd<float>(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, mask, dzx, dh0,
+                                  dc0, (int*)bar, Tn, B, N, reverse, br, us, s);
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, dzx, dh0,
-                                          dc0, (int*)bar, Tn, B, N, reverse, br, us, s);
+    return (int)launch_bwd<__nv_bfloat16>(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, mask, dzx,
+                                          dh0, dc0, (int*)bar, Tn, B, N, reverse, br, us, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,7 @@ lib/seq2seq.py:190-489): a stacked (bi)LSTM encoder, a forward LSTM
 decoder with local additive attention on top, and a weight-tied softmax
 output. Functions take (params, config, tensors) and run on the device
 the tensors live on. Training uses the same decoder teacher-forced
-(`forward_teacher`): its unmasked LSTM scans go through the
+(`forward_teacher`): its LSTM scans, masked or not, go through the
 whole-sequence scan kernels (`_train_scan`), its top attention layer
 through the fused teacher kernels (ops/teacher_kernel.py), the windowed
 scan with the hand-written backward (models/teacher_scan.py) or the
@@ -77,14 +77,15 @@ _TRAIN_MESH = None
 
 def _train_scan(xs, w, h0=None, c0=None, reverse=False, mask=None):
     """lstm_scan for training-path sequence recurrences: the fused
-    whole-sequence scan where it is supported, else the plain scan.
-    Masked scans (mask_padding models' encoders) stay on the plain one.
-    Under a training mesh the kernels launch on this rank's rows."""
-    if mask is None and _FUSED_TRAIN_SCAN != 'off':
+    whole-sequence scan where it is supported, else the plain scan; a
+    padding mask (mask_padding models' encoders) goes along either way.
+    Under a training mesh the kernels launch on this rank's rows, and the
+    mask is theirs."""
+    if _FUSED_TRAIN_SCAN != 'off':
         if _FUSED_TRAIN_SCAN == 'on' or (
                 xs.device.type == 'cuda'
                 and fused_scan_supported(w, xs.shape[0], mesh=_TRAIN_MESH)):
-            return lstm_scan_fused(xs, w, h0, c0, reverse=reverse)
+            return lstm_scan_fused(xs, w, h0, c0, reverse=reverse, mask=mask)
     return lstm_scan(xs, w, h0, c0, reverse=reverse, mask=mask)
 
 

@@ -45,8 +45,8 @@ SIGNATURES = {
     'decode_loop_launch': (I, [P] * 4 + [I] * 9 + [P]),
     'lstm_scan_max_width': (I, []),
     'lstm_scan_plan': (I, [I] * 6 + [P]),
-    'lstm_scan_fwd_launch': (I, [I] + [P] * 9 + [I] * 6 + [P]),
-    'lstm_scan_bwd_launch': (I, [I] + [P] * 12 + [I] * 6 + [P]),
+    'lstm_scan_fwd_launch': (I, [I] + [P] * 10 + [I] * 6 + [P]),
+    'lstm_scan_bwd_launch': (I, [I] + [P] * 13 + [I] * 6 + [P]),
     'teacher_scan_supported': (I, [I] * 3),
     'teacher_fwd_launch': (I, [I] + [P] * 2 + [I] * 6 + [P]),
     'teacher_bwd_supported': (I, [I] * 3),

@@ -20,6 +20,13 @@ slice of R in shared memory for the whole sweep; the blocks of a row
 group meet at a counter (``_group_counters``, zeroed per launch) once a
 step. ``scan_plan`` shows how the launcher splits a sweep over the card.
 
+Both take an optional padding mask (T, B) with the semantics of
+``ops.lstm.lstm_scan(mask=)``, which the Pallas kernels lack: at a masked
+step the carry passes on unchanged and the output is zero. The kernels'
+hs and cs hold the carry there, so that the backward's hprev and cprev
+stay views and ``dR`` one product (K5 writes dzx = 0 at a masked step);
+`LstmScan` zeroes the outputs of masked steps.
+
 ``lstm_scan_fwd_reference`` and ``lstm_scan_bwd_reference`` are the
 plain versions: step-by-step PyTorch transcriptions of the two Pallas
 bodies with the same rounding points. The wrappers ``lstm_scan_fwd`` and
@@ -54,27 +61,40 @@ def _steps(T, reverse):
     return range(T - 1, -1, -1) if reverse else range(T)
 
 
-def lstm_scan_fwd_reference(zx, R, h0, c0, reverse=False):
+def _held(mask, t):
+    """(B, 1) bool: the rows whose step t is valid."""
+    return mask[t, :, None].bool()
+
+
+def lstm_scan_fwd_reference(zx, R, h0, c0, reverse=False, mask=None):
     """Plain K4. zx (T, B, 4N) time-major, R (N, 4N), h0/c0 (B, N), all
-    in the weight dtype. Returns hs, cs (T, B, N) and hT, cT (B, N);
-    `reverse` walks time from T-1 down, outputs stay at their own index."""
+    in the weight dtype; `mask` None or (T, B), nonzero at valid steps.
+    Returns hs, cs (T, B, N) and hT, cT (B, N); `reverse` walks time from
+    T-1 down, outputs stay at their own index. At a masked step hs and cs
+    hold the carry, which passes on unchanged."""
     T = zx.shape[0]
     h, c = h0, c0
     hs, cs = [None] * T, [None] * T
     for t in _steps(T, reverse):
         i, f, g, o = _gates(zx[t] + torch.matmul(h, R))
-        c = f * c + i * g
-        h = o * torch.tanh(c)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        if mask is None:
+            h, c = h_new, c_new
+        else:
+            m = _held(mask, t)
+            h, c = torch.where(m, h_new, h), torch.where(m, c_new, c)
         hs[t], cs[t] = h, c
     return torch.stack(hs), torch.stack(cs), h, c
 
 
 def lstm_scan_bwd_reference(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs,
-                            reverse=False):
+                            reverse=False, mask=None):
     """Plain K5. g_hs (T, B, N), g_hT/g_cT (B, N): cotangents of hs, hT,
     cT in the weight dtype; hprev/cprev (T, B, N): the state each step
     started from. Returns dzx (T, B, 4N) in the weight dtype and dh0, dc0
-    (B, N) in float32."""
+    (B, N) in float32. At a step `mask` marks as padding dzx is zero,
+    g_hs does not enter, and the carried dh, dc pass on unchanged."""
     T = zx.shape[0]
     dt, f32 = R.dtype, torch.float32
     dh_c, dc_c = g_hT.to(f32), g_cT.to(f32)
@@ -91,9 +111,15 @@ def lstm_scan_bwd_reference(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs,
         dz = torch.cat([d_i * i * (1.0 - i), d_f * f * (1.0 - f),
                         d_g * (1.0 - g * g), d_o * o * (1.0 - o)],
                        dim=-1).to(dt)
+        dh_new, dc_new = torch.matmul(dz.to(f32), Rt), dc * f
+        if mask is None:
+            dh_c, dc_c = dh_new, dc_new
+        else:
+            m = _held(mask, t)
+            dz = torch.where(m, dz, torch.zeros_like(dz))
+            dh_c = torch.where(m, dh_new, dh_c)
+            dc_c = torch.where(m, dc_new, dc_c)
         dzx[t] = dz
-        dh_c = torch.matmul(dz.to(f32), Rt)
-        dc_c = dc * f
     return torch.stack(dzx), dh_c, dc_c
 
 
@@ -110,6 +136,18 @@ def _check(name, tensors, dt, dev, f32_tensors=()):
                 raise ValueError('%s: contiguous, 16-byte aligned %s '
                                  'tensors on %s expected'
                                  % (name, want, dev))
+
+
+def _mask_ptr(name, mask, dev, T, B):
+    """The launchers' mask argument: None, or the address of a contiguous
+    (T, B) uint8 tensor on `dev`."""
+    if mask is None:
+        return None
+    if mask.device != dev or mask.dtype != torch.uint8 \
+            or mask.shape != (T, B) or not mask.is_contiguous():
+        raise ValueError('%s: a contiguous (T, B) uint8 mask on %s expected'
+                         % (name, dev))
+    return mask.data_ptr()
 
 
 def _on_cpu(tensors):
@@ -152,13 +190,15 @@ def _views(buf, reverse):
     return (buf[:-1], buf[1:]) if reverse else (buf[1:], buf[:-1])
 
 
-def _scan_fwd(zx, R, h0, c0, reverse, rows_per_group=0, units_per_slice=0):
+def _scan_fwd(zx, R, h0, c0, reverse, mask=None, rows_per_group=0,
+              units_per_slice=0):
     """K4 with hs and cs written into (T+1, B, N) buffers whose other slot
     holds h0, c0, so that the backward's hprev and cprev are views, not
     copies. Returns hbuf, cbuf, hT, cT."""
     tensors = (zx, R, h0, c0)
     if _on_cpu(tensors):
-        hs, cs, hT, cT = lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+        hs, cs, hT, cT = lstm_scan_fwd_reference(zx, R, h0, c0, reverse,
+                                                 mask)
         ends = (lambda s, s0: torch.cat([s, s0[None]]) if reverse
                 else torch.cat([s0[None], s]))
         return ends(hs, h0), ends(cs, c0), hT, cT
@@ -180,7 +220,8 @@ def _scan_fwd(zx, R, h0, c0, reverse, rows_per_group=0, units_per_slice=0):
     hT = torch.empty((B, N), dtype=dt, device=dev)
     cT = torch.empty((B, N), dtype=dt, device=dev)
     err = _build.library().lstm_scan_fwd_launch(
-        _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors), hs.data_ptr(),
+        _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors),
+        _mask_ptr('lstm_scan_fwd', mask, dev, T, B), hs.data_ptr(),
         cs.data_ptr(), hT.data_ptr(), cT.data_ptr(),
         _group_counters(B, dev).data_ptr(), T, B, N, int(reverse),
         rows_per_group, units_per_slice, _build.stream_of(zx))
@@ -190,25 +231,27 @@ def _scan_fwd(zx, R, h0, c0, reverse, rows_per_group=0, units_per_slice=0):
     return hbuf, cbuf, hT, cT
 
 
-def lstm_scan_fwd(zx, R, h0, c0, reverse=False):
+def lstm_scan_fwd(zx, R, h0, c0, reverse=False, mask=None):
     """K4: hs, cs (T, B, N), hT, cT (B, N) from zx (T, B, 4N), R (N, 4N)
-    and h0/c0 (B, N) of one dtype on one device."""
+    and h0/c0 (B, N) of one dtype on one device; `mask` None or (T, B)
+    uint8 (see `lstm_scan_fwd_reference`)."""
     if _on_cpu((zx, R, h0, c0)):
-        return lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
-    hbuf, cbuf, hT, cT = _scan_fwd(zx, R, h0, c0, reverse)
+        return lstm_scan_fwd_reference(zx, R, h0, c0, reverse, mask)
+    hbuf, cbuf, hT, cT = _scan_fwd(zx, R, h0, c0, reverse, mask)
     return _views(hbuf, reverse)[0], _views(cbuf, reverse)[0], hT, cT
 
 
 lstm_scan_fwd.launches = 0
 
 
-def lstm_scan_bwd(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse=False):
+def lstm_scan_bwd(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse=False,
+                  mask=None):
     """K5: dzx (T, B, 4N) in the weight dtype and dh0, dc0 (B, N) in
     float32 (see `lstm_scan_bwd_reference`)."""
     tensors = (g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs)
     if _on_cpu(tensors):
         return lstm_scan_bwd_reference(g_hs, g_hT, g_cT, zx, R, hprev,
-                                       cprev, cs, reverse)
+                                       cprev, cs, reverse, mask)
     dt, dev = R.dtype, R.device
     if dev.type != 'cuda':
         raise ValueError('lstm_scan_bwd: tensors must all be on one CUDA '
@@ -224,7 +267,8 @@ def lstm_scan_bwd(g_hs, g_hT, g_cT, zx, R, hprev, cprev, cs, reverse=False):
     dh0 = torch.empty((B, N), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, N), dtype=torch.float32, device=dev)
     err = _build.library().lstm_scan_bwd_launch(
-        _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors), dzx.data_ptr(),
+        _DTYPE_CODES[dt], *(t.data_ptr() for t in tensors),
+        _mask_ptr('lstm_scan_bwd', mask, dev, T, B), dzx.data_ptr(),
         dh0.data_ptr(), dc0.data_ptr(), _group_counters(B, dev).data_ptr(),
         T, B, N, int(reverse), 0, 0, _build.stream_of(zx))
     _build.check(err, 'lstm_scan backward kernel (T=%d B=%d N=%d)'
@@ -237,22 +281,26 @@ lstm_scan_bwd.launches = 0
 
 
 class LstmScan(torch.autograd.Function):
-    """(zx, R, h0, c0) -> (hs, hT, cT), differentiable through K4 and K5
-    (their plain versions for CPU tensors). The cell states are saved for
-    the backward and not an output (JAX ``_scan_core``); hs and cs are
-    saved with the initial state beside them, so that the state each step
-    started from is a view."""
+    """(zx, R, h0, c0, reverse, mask) -> (hs, hT, cT), differentiable
+    through K4 and K5 (their plain versions for CPU tensors). The cell
+    states are saved for the backward and not an output (JAX
+    ``_scan_core``); hs and cs are saved with the initial state beside
+    them, so that the state each step started from is a view. With a
+    (T, B) uint8 `mask` the returned hs is zero at masked steps."""
 
     @staticmethod
-    def forward(ctx, zx, R, h0, c0, reverse):
-        hbuf, cbuf, hT, cT = _scan_fwd(zx, R, h0, c0, reverse)
-        ctx.save_for_backward(zx, R, hbuf, cbuf)
+    def forward(ctx, zx, R, h0, c0, reverse, mask):
+        hbuf, cbuf, hT, cT = _scan_fwd(zx, R, h0, c0, reverse, mask)
+        ctx.save_for_backward(zx, R, hbuf, cbuf, mask)
         ctx.reverse = reverse
-        return _views(hbuf, reverse)[0], hT, cT
+        hs = _views(hbuf, reverse)[0]
+        if mask is not None:
+            hs = hs.masked_fill(mask[..., None] == 0, 0)
+        return hs, hT, cT
 
     @staticmethod
     def backward(ctx, g_hs, g_hT, g_cT):
-        zx, R, hbuf, cbuf = ctx.saved_tensors
+        zx, R, hbuf, cbuf, mask = ctx.saved_tensors
         reverse = ctx.reverse
         T, B, N4 = zx.shape
         dt = R.dtype
@@ -265,12 +313,12 @@ class LstmScan(torch.autograd.Function):
 
         dzx, dh0, dc0 = lstm_scan_bwd(
             cot(g_hs, hs), cot(g_hT, hs[0]), cot(g_cT, cs[0]), zx, R, hprev,
-            cprev, cs, reverse)
+            cprev, cs, reverse, mask)
         # the weight gradient as one product over all T*B rows, float32
         # accumulation rounded to the weight dtype
         dR = torch.matmul(hprev.reshape(T * B, -1).t(),
                           dzx.reshape(T * B, N4))
-        return dzx, dR, dh0.to(dt), dc0.to(dt), None
+        return dzx, dR, dh0.to(dt), dc0.to(dt), None, None
 
 
 def fused_scan_supported(w, batch=None, mesh=None):
@@ -297,16 +345,14 @@ def fused_scan_supported(w, batch=None, mesh=None):
 def lstm_scan_fused(xs, w, h0=None, c0=None, reverse=False, mask=None,
                     mesh=None):
     """Drop-in for ``ops.lstm.lstm_scan`` through `LstmScan`: xs (B, T, D)
-    -> (outputs (B, T, N), hT, cT). `mask` is unsupported (masked scans
-    stay on ``lstm_scan`` in the caller).
+    -> (outputs (B, T, N), hT, cT); `mask` (B, T), true at valid steps,
+    as there.
 
     `mesh` is the JAX package's argument: there the launch runs per data
     shard under ``shard_map``. Here xs, h0 and c0 already are the rank's
     rows and `w` the full weights (`models.train.train_step` gathers
     them over 'model' and sums their gradients over 'data' once a step),
     so the launch is the same with or without it."""
-    if mask is not None:
-        raise ValueError('lstm_scan_fused takes no mask; use lstm_scan')
     rk = w['recurrent_kernel']
     B = xs.shape[0]
     N, dt = rk.shape[0], rk.dtype
@@ -315,6 +361,8 @@ def lstm_scan_fused(xs, w, h0=None, c0=None, reverse=False, mask=None,
     c = (torch.zeros((B, N), dtype=dt, device=xs.device) if c0 is None
          else c0.to(dt).contiguous())
     zx = mm(xs, w['kernel']) + w['bias']
+    if mask is not None:
+        mask = mask.t().to(torch.uint8).contiguous()
     hs, hT, cT = LstmScan.apply(zx.transpose(0, 1).contiguous(),
-                                rk.contiguous(), h, c, bool(reverse))
+                                rk.contiguous(), h, c, bool(reverse), mask)
     return hs.transpose(0, 1), hT, cT

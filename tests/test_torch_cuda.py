@@ -27,6 +27,7 @@ from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
 from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan, lstm_step
 from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import lstm_step_fused
 from cor_asv_ann_tpu_torch.utils.data import CharMapping, lines_to_index_batch
+from padding_masks import kernel_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -489,12 +490,182 @@ def test_lstm_scan_autograd_matches_plain_scan(dev, reverse):
         torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('T,B,N', [(12, 37, 128), (16, 256, 128),
+                                   (12, 37, 512), (16, 64, 512)])
+def test_lstm_scan_kernels_with_padding_mask(dev, dtype, reverse, T, B, N):
+    """Masked K4, then K5 on the states it saved, against their plain
+    versions: carries that pass masked steps unchanged (an all-padding row
+    ends on h0, c0 and hands back g_hT, g_cT), dzx zero at masked steps."""
+    zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N, seed=6)
+    mask = kernel_mask(T, B, 7).to(dev)
+    got = lsk.lstm_scan_fwd(zx, R, h0, c0, reverse, mask)
+    torch.cuda.synchronize()
+    want = lsk.lstm_scan_fwd_reference(zx, R, h0, c0, reverse, mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **SCAN_TOL[dtype])
+    hs, cs, hT, cT = got
+    assert torch.equal(hT[1], h0[1]) and torch.equal(cT[1], c0[1])
+    rng = np.random.default_rng(8)
+    g_hs, g_hT, g_cT = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.1)
+        .to(dtype).to(dev) for s in ((T, B, N), (B, N), (B, N)))
+    args = (g_hs, g_hT, g_cT, zx, R, _shift(hs, h0, reverse),
+            _shift(cs, c0, reverse), cs, reverse, mask)
+    got = lsk.lstm_scan_bwd(*args)
+    torch.cuda.synchronize()
+    want = lsk.lstm_scan_bwd_reference(*args)
+    for g, w in zip(got, want):
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float() / scale, w.float() / scale,
+                                   **SCAN_TOL[dtype])
+    dzx, dh0, dc0 = got
+    assert not bool(dzx[mask == 0].any())
+    assert torch.equal(dh0[1], g_hT[1].float())
+    assert torch.equal(dc0[1], g_cT[1].float())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_lstm_scan_kernels_all_valid_mask_is_no_mask(dev, dtype):
+    """A mask that holds every step gives the unmasked kernels' bits."""
+    T, B, N = 16, 256, 512
+    zx, R, h0, c0 = _scan_inputs(dev, dtype, T, B, N, seed=9)
+    ones = torch.ones((T, B), dtype=torch.uint8, device=dev)
+    plain = lsk.lstm_scan_fwd(zx, R, h0, c0)
+    for a, b in zip(plain, lsk.lstm_scan_fwd(zx, R, h0, c0, False, ones)):
+        assert torch.equal(a, b)
+    hs, cs = plain[:2]
+    g = torch.full_like(hs, 0.01)
+    args = (g, g[0], g[0], zx, R, _shift(hs, h0, False),
+            _shift(cs, c0, False), cs, False)
+    for a, b in zip(lsk.lstm_scan_bwd(*args),
+                    lsk.lstm_scan_bwd(*args, mask=ones)):
+        assert torch.equal(a, b)
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16
+                  else t).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _unmasked_scan_digests(dev):
+    """sha256 (16 hex digits) of the unmasked K4 outputs and of K5's on
+    them, at fixed inputs, per dtype and direction."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for reverse in (False, True):
+            zx, R, h0, c0 = _scan_inputs(dev, dtype, 16, 256, 512, seed=10)
+            fwd = lsk.lstm_scan_fwd(zx, R, h0, c0, reverse)
+            hs, cs = fwd[:2]
+            g = torch.full_like(hs, 0.01)
+            bwd = lsk.lstm_scan_bwd(g, g[0], g[0], zx, R,
+                                    _shift(hs, h0, reverse),
+                                    _shift(cs, c0, reverse), cs, reverse)
+            out['%s%s' % (str(dtype)[6:], '_reverse' if reverse else '')] = \
+                (_digest(fwd), _digest(bwd))
+    return out
+
+
+# the unmasked kernels' outputs before the padding mask came in, taken on
+# an H100 80GB HBM3 (132 SMs: the launch plan, and so the order of every
+# sum, follows the SM count and shared memory of the card)
+UNMASKED_SCAN_DIGESTS = {
+    'float32': ('b246f078e07312a2', 'c4420cb536bb9916'),
+    'float32_reverse': ('4883f756dfff558d', 'f41629b64c8d398d'),
+    'bfloat16': ('ea907190943da625', '60297a6db8200aeb'),
+    'bfloat16_reverse': ('0ec81faf819a933e', 'e45c57239c98c9e1')}
+
+
+def test_unmasked_scan_kernels_keep_their_bits(dev):
+    """Without a mask K4 and K5 give the bits they gave before the mask
+    was added, on the card the digests were taken on."""
+    name = torch.cuda.get_device_name(dev)
+    got = _unmasked_scan_digests(dev)
+    print('unmasked scan digests on %s: %r' % (name, got))
+    if name != 'NVIDIA H100 80GB HBM3':
+        pytest.skip('digests were taken on an NVIDIA H100 80GB HBM3')
+    assert got == UNMASKED_SCAN_DIGESTS
+
+
+def test_masked_train_step_goes_through_the_scan_kernels(dev):
+    """A mask_padding d2/w128 model: four K4 and four K5 launches a
+    train_step (the encoder's three masked scans and the lower decoder
+    layer), none with the route off, and the same loss, gradients and
+    parameter changes as the step-by-step masked scan."""
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import tree_leaves, tree_map
+    rng = np.random.default_rng(11)
+    B, Tn, V = 48, 30, 20
+    lengths = rng.integers(3, Tn + 1, B)
+    idx = rng.integers(1, V, size=(B, Tn))
+    valid = np.arange(Tn)[None] < lengths[:, None]
+    enc = np.where(valid, idx, -1).astype(np.int32)
+    dec_in = np.concatenate([np.full((B, 1), -1, np.int32), enc], axis=1)
+    dec_out = np.concatenate([enc, np.full((B, 1), -1, np.int32)], axis=1)
+    weights = (dec_out >= 0).astype(np.float32)
+    config = Seq2SeqConfig(width=128, depth=2, voc_size=V, dropout=0.2,
+                           mask_padding=True)
+    init = init_params(config, seed=2)
+    got = {}
+    for mode in ('auto', 'off'):
+        seq2seq._FUSED_TRAIN_SCAN = mode
+        try:
+            params = tree_map(lambda t: t.requires_grad_(),
+                              params_from_numpy(init, dev))
+            first = [t.detach().clone() for t in tree_leaves(params)]
+            loss = T.loss_fn(params, config, *(torch.from_numpy(a).to(dev)
+                                               for a in (enc, dec_in,
+                                                         dec_out, weights)),
+                             torch.Generator().manual_seed(3))
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            opt = T.make_optimizer(params)
+            before = lsk.lstm_scan_fwd.launches, lsk.lstm_scan_bwd.launches
+            T.train_step(params, opt, config, enc, dec_in, dec_out, weights,
+                         torch.Generator().manual_seed(4))
+            torch.cuda.synchronize()
+            launched = (lsk.lstm_scan_fwd.launches - before[0],
+                        lsk.lstm_scan_bwd.launches - before[1])
+        finally:
+            seq2seq._FUSED_TRAIN_SCAN = 'auto'
+        change = [t.detach() - f for t, f in zip(tree_leaves(params), first)]
+        got[mode] = float(loss.detach()), grads, change, launched
+    on, off = got['auto'], got['off']
+    assert on[3] == (4, 4) and off[3] == (0, 0)
+    assert on[0] == pytest.approx(off[0], rel=1e-6)
+    # each gradient relative to its own scale, but at least 1e-4 of the
+    # largest: some leaves of a fresh model get almost none (1e-18)
+    top = max(r.abs().max().item() for r in off[1])
+    for g, r in zip(on[1], off[1]):
+        scale = max(r.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(g / scale, r / scale, rtol=2e-4,
+                                   atol=2e-5)
+    # Adam's first step is about lr * sign(gradient): compare the changes
+    # by their norm, which a sign flip of a near-zero gradient hardly
+    # moves, again at least 1e-4 of the largest
+    top = max(float(r.norm()) for r in off[2])
+    for c, r in zip(on[2], off[2]):
+        assert float((c - r).norm()) <= 1e-3 * max(float(r.norm()),
+                                                   1e-4 * top)
+
+
 def test_lstm_scan_kernel_refuses_what_it_cannot_take(dev):
     zx, R, h0, c0 = _scan_inputs(dev, torch.float32, 3, 2, 8)
     with pytest.raises(ValueError):
         lsk.lstm_scan_fwd(zx, R.cpu(), h0, c0)
     with pytest.raises(ValueError):
         lsk.lstm_scan_fwd(zx.double(), R.double(), h0.double(), c0.double())
+    # a mask of another shape, dtype or device
+    for mask in (torch.ones((2, 3), dtype=torch.uint8, device=dev),
+                 torch.ones((3, 2), dtype=torch.bool, device=dev),
+                 torch.ones((3, 2), dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            lsk.lstm_scan_fwd(zx, R, h0, c0, False, mask)
     # a width that is no multiple of 8: the launcher reports it
     zx, R, h0, c0 = _scan_inputs(dev, torch.float32, 3, 2, 12)
     assert not lsk.fused_scan_supported({'recurrent_kernel': R})

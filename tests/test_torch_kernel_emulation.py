@@ -41,6 +41,7 @@ from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
 from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
 from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
 from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
+from padding_masks import kernel_mask
 from torch_port_fixtures import single_threaded_cpu  # noqa: F401
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -142,16 +143,39 @@ SCAN_SHAPES = [(3, 5, 16, 0, 0), (4, 21, 40, 16, 16), (2, 3, 520, 0, 0)]
 def test_emulated_lstm_scan(lib, dtype, reverse, T, B, N, br, us):
     """K4 and K5: blocks of one cooperative grid meeting at their row
     group's counter once a step."""
+    _emulated_scan(lib, dtype, reverse, T, B, N, br, us, masked=False)
+
+
+# every shape in float32, the two small ones in bfloat16 (N = 520 in
+# bfloat16 takes ~40 s a case here)
+MASKED_SCAN_CASES = [(dt,) + shape for shape in SCAN_SHAPES
+                     for dt in (torch.float32, torch.bfloat16)
+                     if dt == torch.float32 or shape[2] <= 256]
+
+
+@pytest.mark.parametrize(
+    'dtype,T,B,N,br,us', MASKED_SCAN_CASES,
+    ids=['%s-%d-%d-%d' % (str(c[0])[6:], *c[1:4]) for c in MASKED_SCAN_CASES])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_emulated_lstm_scan_masked(lib, dtype, reverse, T, B, N, br, us):
+    """K4 and K5 with a padding mask: carries that pass masked steps by
+    (K5 parks dh in dh0 across the product), dzx zero there."""
+    _emulated_scan(lib, dtype, reverse, T, B, N, br, us, masked=True)
+
+
+def _emulated_scan(lib, dtype, reverse, T, B, N, br, us, masked):
     rng = np.random.default_rng(1)
     zx, R = _mk(rng, (T, B, 4 * N), 1.0, dtype), \
         _mk(rng, (N, 4 * N), N ** -0.5, dtype)
     h0, c0 = _mk(rng, (B, N), .2, dtype), _mk(rng, (B, N), .2, dtype)
-    want = lsk.lstm_scan_fwd_reference(zx, R, h0, c0, reverse)
+    mask = kernel_mask(T, B, 2) if masked else None
+    mask_ptr = None if mask is None else mask.data_ptr()
+    want = lsk.lstm_scan_fwd_reference(zx, R, h0, c0, reverse, mask)
     got = [torch.full_like(w, float('nan')) for w in want]
     bar = lsk._group_counters(B, 'cpu')
-    err = lib.lstm_scan_fwd_launch(CODE[dtype], *_ptrs([zx, R, h0, c0] + got),
-                                   bar.data_ptr(), T, B, N, int(reverse), br,
-                                   us, None)
+    err = lib.lstm_scan_fwd_launch(CODE[dtype], *_ptrs([zx, R, h0, c0]),
+                                   mask_ptr, *_ptrs(got), bar.data_ptr(), T,
+                                   B, N, int(reverse), br, us, None)
     assert err == 0
     _assert_close(got, want, TOL[dtype], ('hs', 'cs', 'hT', 'cT'))
     plan = _plan(lib, 0, dtype, B, N, br, us)
@@ -167,16 +191,18 @@ def test_emulated_lstm_scan(lib, dtype, reverse, T, B, N, br, us):
             torch.cat([c0[None], cs[:-1]])
     cots = [_mk(rng, s, .1, dtype) for s in ((T, B, N), (B, N), (B, N))]
     want = lsk.lstm_scan_bwd_reference(*cots, zx, R, hprev, cprev, cs,
-                                       reverse)
+                                       reverse, mask)
     got = [torch.full_like(w, float('nan')) for w in want]
     ins = cots + [zx, R, hprev, cprev, cs]
     bar.zero_()
-    err = lib.lstm_scan_bwd_launch(CODE[dtype], *_ptrs(ins + got),
-                                   bar.data_ptr(), T, B, N, int(reverse), br,
-                                   us, None)
+    err = lib.lstm_scan_bwd_launch(CODE[dtype], *_ptrs(ins), mask_ptr,
+                                   *_ptrs(got), bar.data_ptr(), T, B, N,
+                                   int(reverse), br, us, None)
     assert err == 0
     _assert_close(got, want, TOL[dtype], ('dzx', 'dh0', 'dc0'),
                   relative=True)
+    if masked:
+        assert not bool(got[0][mask == 0].any())
 
 
 @DTYPES
@@ -200,8 +226,9 @@ def test_emulated_lstm_scan_plans(lib, dtype):
              ((T, B, 4 * N), (N, 4 * N), (B, N), (B, N), (T, B, N),
               (T, B, N), (B, N), (B, N))]
     bar = lsk._group_counters(B, 'cpu')
-    err = lib.lstm_scan_fwd_launch(CODE[dtype], *_ptrs(zeros), bar.data_ptr(),
-                                   T, B, N, 0, 16, 8, None)
+    err = lib.lstm_scan_fwd_launch(CODE[dtype], *_ptrs(zeros[:4]), None,
+                                   *_ptrs(zeros[4:]), bar.data_ptr(), T, B, N,
+                                   0, 16, 8, None)
     assert err == 720     # cudaErrorCooperativeLaunchTooLarge
     assert float(zeros[4].abs().sum()) == 0.0
     # imposed sizes that no product holds, or that break the tiles

@@ -252,14 +252,15 @@ def test_regularizer_counted_once(world, single, name):
     assert_step_close(got, jax_train_step('regularizer'))
 
 
-@pytest.mark.parametrize('case', ['dropout', 'kernels'])
+@pytest.mark.parametrize('case', ['dropout', 'kernels', 'masked_kernels'])
 @pytest.mark.parametrize('name', WORLDS)
 def test_dropout_matches_single_process(world, single, name, case):
     """Dropout 0.5: every rank draws the global batch's masks from the
     same generator and keeps its rows, so the step equals the single
     process's with the same generator; 'kernels' sends the scans through
     lstm_scan_fused and the top layer through teacher_top_fused_sharded
-    (their plain twins here)."""
+    (their plain twins here), 'masked_kernels' a mask_padding model's
+    scans through lstm_scan_fused with each rank's rows of the mask."""
     assert_step_close(world(name)[0]['train'][case], single['train'][case])
 
 

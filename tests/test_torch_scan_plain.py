@@ -13,7 +13,12 @@ interpret mode and through the port:
   tests/test_fused_scan.py;
 - gradients through ``LstmScan`` against ``jax.grad`` of the fused scan
   in interpret mode at rtol 2e-4 / atol 2e-5 (float32 sums in another
-  order), the bar of tests/test_fused_scan.py::test_gradients_match_xla.
+  order), the bar of tests/test_fused_scan.py::test_gradients_match_xla;
+- with a padding mask (which the Pallas kernels lack) against the masked
+  ``lstm_scan`` of both packages, under autograd and ``jax.grad``: the
+  same bars in float32; in bfloat16 the forward at 2e-2 and the
+  gradients at 3e-2 of their largest value (``lstm_scan`` differentiates
+  bfloat16 ops, K5 carries dh and dc in float32).
 """
 
 import jax
@@ -22,10 +27,12 @@ import numpy as np
 import pytest
 import torch
 
+from cor_asv_ann_tpu.ops.lstm import lstm_scan as j_lstm_scan
 from cor_asv_ann_tpu.ops.pallas_lstm_train import (
     lstm_scan_fused as j_lstm_scan_fused)
 from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as K
 from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan
+from padding_masks import kernel_mask, padding_mask
 from torch_port_fixtures import single_threaded_cpu  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -188,11 +195,128 @@ def test_bwd_reference_dtypes_bf16():
                for t in (dzx, dh0, dc0))
 
 
-def test_mask_is_refused_and_gate_is_off_on_cpu():
-    w, xs, _, _ = _inputs(19, 2, 3, 8, 8, with_init=False)
+def test_mask_goes_through_and_gate_is_off_on_cpu():
+    """The masked fused route (plain K4/K5 through LstmScan) is the masked
+    plain scan, in both directions, and counts no launch on the CPU."""
+    w, xs, _, _ = _inputs(19, 4, 5, 8, 8, with_init=False)
     tw = {k: _tt(v) for k, v in w.items()}
-    with pytest.raises(ValueError):
-        K.lstm_scan_fused(_tt(xs), tw,
-                          mask=torch.ones((2, 3), dtype=torch.bool))
+    mask = torch.from_numpy(padding_mask(4, 5, 20))
+    before = K.lstm_scan_fwd.launches
+    for reverse in (False, True):
+        got = K.lstm_scan_fused(_tt(xs), tw, reverse=reverse, mask=mask)
+        ref = lstm_scan(_tt(xs), tw, reverse=reverse, mask=mask)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(_np(g), _np(r), **F32)
+        # zero outputs at masked steps; the all-padding row keeps h0 = 0
+        assert not bool(got[0][~mask].any()) and not bool(got[1][1].any())
+    assert K.lstm_scan_fwd.launches == before
     # the gate speaks of the CUDA kernels only
     assert not K.fused_scan_supported(tw)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('with_init', [False, True])
+@pytest.mark.parametrize('reverse', [False, True])
+def test_masked_scan_matches_both_packages(dtype, with_init, reverse):
+    """lstm_scan_fused(mask=) against the port's masked lstm_scan under
+    autograd and the JAX package's under jax.grad: outputs, final states
+    and the gradients of xs, the three weights, h0 and c0. The mask holds
+    right padding, gaps inside a row, a whole row and a row of padding
+    only."""
+    B, T, D, N = 5, 7, 8, 8
+    w, xs, h0, c0 = _inputs(23, B, T, D, N, with_init)
+    mask = padding_mask(B, T, 24)
+    rng = np.random.default_rng(25)
+    wo = rng.standard_normal((B, T, N)).astype(np.float32)
+    wh = rng.standard_normal((B, N)).astype(np.float32)
+    wc = rng.standard_normal((B, N)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jloss(xs, w, h0, c0):
+        out, h, c = j_lstm_scan(xs, w, h0, c0, reverse=reverse,
+                                mask=jnp.asarray(mask))
+        f32 = jnp.float32
+        return (jnp.sum(out.astype(f32) * wo) + jnp.sum(h.astype(f32) * wh)
+                + jnp.sum(c.astype(f32) * wc)), (out, h, c)
+
+    jargs = (_jx(xs, jdt), {k: _jx(v, jdt) for k, v in w.items()},
+             _jx(h0, jdt), _jx(c0, jdt))
+    argnums = (0, 1, 2, 3) if with_init else (0, 1)
+    jg, jouts = jax.grad(jloss, argnums=argnums, has_aux=True)(*jargs)
+    jwant = [jg[0], jg[1]['bias'], jg[1]['kernel'],
+             jg[1]['recurrent_kernel'], *jg[2:]]
+
+    def leaf(a):
+        return None if a is None else _tt(a, tdt).requires_grad_()
+
+    txs, th0, tc0 = leaf(xs), leaf(h0), leaf(c0)
+    tw = {k: leaf(v) for k, v in w.items()}
+    leaves = [txs, tw['bias'], tw['kernel'], tw['recurrent_kernel']]
+    leaves += [th0, tc0] if with_init else []
+    tmask = torch.from_numpy(mask)
+
+    def run(fn):
+        outs = fn(txs, tw, th0, tc0, reverse=reverse, mask=tmask)
+        loss = ((outs[0].float() * _tt(wo)).sum()
+                + (outs[1].float() * _tt(wh)).sum()
+                + (outs[2].float() * _tt(wc)).sum())
+        return outs, torch.autograd.grad(loss, leaves)
+
+    got, got_g = run(K.lstm_scan_fused)
+    ref, ref_g = run(lstm_scan)
+    fwd = F32 if dtype == 'float32' else BF16
+    for g, r, j in zip(got, ref, jouts):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(_np(g), _np(r), **fwd)
+        np.testing.assert_allclose(_np(g), np.asarray(j, np.float32), **fwd)
+    assert not bool(got[0][~tmask].any())
+    for g, r, j in zip(got_g, ref_g, jwant):
+        g, r, j = _np(g), _np(r), np.asarray(j, np.float32)
+        if dtype == 'float32':
+            np.testing.assert_allclose(g, r, **GRAD)
+            np.testing.assert_allclose(g, j, **GRAD)
+        else:
+            scale = max(1.0, float(np.abs(r).max()))
+            np.testing.assert_allclose(g / scale, r / scale, atol=3e-2)
+            np.testing.assert_allclose(g / scale, j / scale, atol=3e-2)
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+def test_masked_plain_kernels_hold_the_carry(reverse):
+    """The raw plain K4/K5 with a mask: hs and cs hold the carry at masked
+    steps; dzx is zero there, the output cotangent of a masked step does
+    not enter, and dh, dc pass masked steps unchanged (an all-padding row
+    returns g_hT and g_cT as its dh0 and dc0)."""
+    T, B, N = 5, 4, 8
+    w, _, h0, c0 = _inputs(29, B, T, 4, N)
+    R, h0, c0 = _tt(w['recurrent_kernel']), _tt(h0), _tt(c0)
+    rng = np.random.default_rng(30)
+    zx = _tt(rng.standard_normal((T, B, 4 * N)).astype(np.float32))
+    mask = kernel_mask(T, B, 31)
+    hs, cs, hT, cT = K.lstm_scan_fwd(zx, R, h0, c0, reverse, mask)
+    walk = range(T - 1, -1, -1) if reverse else range(T)
+    h, c = h0, c0
+    for t in walk:
+        held = mask[t].bool()
+        assert torch.equal(hs[t][~held], h[~held])
+        assert torch.equal(cs[t][~held], c[~held])
+        h, c = hs[t], cs[t]
+    assert torch.equal(hT, h) and torch.equal(cT, c)
+    assert torch.equal(hT[1], h0[1]) and torch.equal(cT[1], c0[1])
+    hbuf = torch.cat([hs, h0[None]]) if reverse else torch.cat([h0[None], hs])
+    cbuf = torch.cat([cs, c0[None]]) if reverse else torch.cat([c0[None], cs])
+    hprev = hbuf[1:] if reverse else hbuf[:-1]
+    cprev = cbuf[1:] if reverse else cbuf[:-1]
+    g_hs, g_hT, g_cT = (_tt(rng.standard_normal(s).astype(np.float32))
+                        for s in ((T, B, N), (B, N), (B, N)))
+    dzx, dh0, dc0 = K.lstm_scan_bwd(g_hs, g_hT, g_cT, zx, R, hprev, cprev,
+                                    cs, reverse, mask)
+    assert not bool(dzx[mask == 0].any())
+    assert torch.equal(dh0[1], g_hT[1]) and torch.equal(dc0[1], g_cT[1])
+    # a cotangent at a masked step changes nothing
+    g2 = g_hs.clone()
+    g2[mask == 0] = 100.0
+    again = K.lstm_scan_bwd(g2, g_hT, g_cT, zx, R, hprev, cprev, cs,
+                            reverse, mask)
+    for a, b in zip(again, (dzx, dh0, dc0)):
+        assert torch.equal(a, b)

@@ -240,6 +240,37 @@ def test_gradients_same_with_and_without_fused_scan(fused_scan):
                                    atol=1e-5)
 
 
+def test_masked_train_step_same_with_and_without_fused_scan(fused_scan):
+    """A mask_padding model with dropout: its encoder's masked scans
+    through LstmScan (plain K4/K5 with the mask) against the step-by-step
+    masked lstm_scan under autograd: the loss, every gradient and every
+    leaf after two train_steps."""
+    config = _config(mask_padding=True, dropout=0.2)
+    params = init_params(config, seed=14)
+    batch = [torch.from_numpy(a) for a in _batch()]
+    got = {}
+    for mode in ('on', 'off'):
+        fused_scan(mode)
+        pt = _leaves(params)
+        loss = PT.loss_fn(pt, config, *batch,
+                          torch.Generator().manual_seed(3))
+        grads = torch.autograd.grad(loss, tree_leaves(pt))
+        opt = PT.make_optimizer(pt, 1e-2)
+        gen = torch.Generator().manual_seed(4)
+        losses = [float(PT.train_step(pt, opt, config, *batch, gen))
+                  for _ in range(2)]
+        got[mode] = float(loss.detach()), grads, losses, tree_leaves(pt)
+    on, off = got['on'], got['off']
+    assert on[0] == pytest.approx(off[0], rel=1e-5)
+    assert on[2] == pytest.approx(off[2], rel=1e-5)
+    for a, b in zip(on[1], off[1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    for a, b in zip(on[3], off[3]):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize('dense', [False, True], ids=['index', 'onehot'])
 def test_three_train_steps_match_optax(fused_scan, dense):
     """Same tree, same batches: parameters and Adam moments after three

@@ -80,9 +80,9 @@ def _rank_main(rank, world, target, tmp_dir, args):
 # ---------------------------------------------------------------------
 # inputs, the same in the parent and in the ranks
 
-def train_config(dropout=0.0, width=32):
+def train_config(dropout=0.0, width=32, mask_padding=False):
     return Seq2SeqConfig(width=width, depth=2, voc_size=MAPPING.voc_size,
-                         dropout=dropout)
+                         dropout=dropout, mask_padding=mask_padding)
 
 
 # (name, dropout, batch rows, what is special); the lines are sorted by
@@ -93,6 +93,9 @@ TRAIN_CASES = {
     # the scans through lstm_scan_fused and the top layer through
     # teacher_top_fused_sharded (their plain twins on the CPU)
     'kernels': dict(dropout=0.5, B=8, flags='on'),
+    # a padding mask: the encoder's masked scans through lstm_scan_fused
+    # on each rank's rows and their own masks
+    'masked_kernels': dict(dropout=0.5, B=8, flags='on', mask_padding=True),
     # weights that grow row by row: the shards' own mean losses differ
     # from the batch's even where the model's per-position loss does not
     'normalizer': dict(dropout=0.0, B=8, row_weights=True),
@@ -122,7 +125,8 @@ def train_case(name):
     if case.get('row_weights'):
         rows = np.arange(1, case['B'] + 1, dtype=np.float32)[:, None]
         batch = batch[:3] + (batch[3] * rows,)
-    config = train_config(case['dropout'])
+    config = train_config(case['dropout'],
+                          mask_padding=case.get('mask_padding', False))
     return config, init_params(config, seed=1), batch
 
 

@@ -120,10 +120,12 @@ def main():
             dzx = torch.empty((T, B, 4 * N), dtype=dt, device=dev)
             d0 = [torch.empty((B, N), device=dev) for _ in range(2)]
             bar = torch.zeros(B // 16, dtype=torch.int32, device=dev)
-            fwd_ptrs = [t.data_ptr() for t in (zx, R, h0, c0, *outs)]
+            # no padding mask (None) between the inputs and the outputs
+            fwd_ptrs = [t.data_ptr() for t in (zx, R, h0, c0)] + [None] + \
+                [t.data_ptr() for t in outs]
             bwd_ptrs = [t.data_ptr() for t in
-                        (g, g[0], g[0], zx, R, outs[0], outs[1], outs[1],
-                         dzx, *d0)]
+                        (g, g[0], g[0], zx, R, outs[0], outs[1], outs[1])] + \
+                [None] + [t.data_ptr() for t in (dzx, *d0)]
 
             def run(lib, kind, br=0, us=0):
                 bar.zero_()
