@@ -434,6 +434,27 @@ def _teacher_inputs(torch, dev, dt, B, Td, T, W, A, with_masks, seed):
 # (B, Td, T, W, A, ww): the flagship training shape, and a small one with
 # a ragged last block of rows, T != Td and narrow widths
 TEACHER_SHAPES = ((256, 128, 128, 512, 512, 5), (7, 9, 16, 40, 24, 5))
+# with the encoder's padding mask as well: the benchmark's training cell
+# (d2/w128, lines up to 96), the flagship shape, and a small one whose
+# decoder runs past every line
+PADDED_TEACHER_SHAPES = ((256, 96, 96, 128, 128, 5),
+                         (256, 128, 128, 512, 512, 5), (7, 20, 16, 40, 24, 5))
+
+
+def _teacher_cases():
+    """(B, Td, T, W, A, ww, dropout masks, padded) for the K6/K7 phases."""
+    return ([shape + (m, False) for shape in TEACHER_SHAPES
+             for m in (False, True)]
+            + [shape + (True, True) for shape in PADDED_TEACHER_SHAPES])
+
+
+def _teacher_padding_mask(torch, dev, B, T, seed, ww):
+    """The encoder's (B, T) uint8 padding mask as K6/K7 take it: the rows
+    of `_padding_mask`, and row 3 valid only from position ww + 2 on, so
+    that its every attention window is empty (as row 1's)."""
+    m = _padding_mask(torch, dev, T, B, seed).t().contiguous()
+    m[3] = (torch.arange(T, device=dev) >= ww + 2).to(torch.uint8)
+    return m
 
 
 def teacher_tolerance(torch, dt):
@@ -449,74 +470,88 @@ def teacher_tolerance(torch, dt):
 
 def phase_k6(torch, dev):
     """K6 against its plain version, both dtypes, with and without
-    dropout masks."""
+    dropout masks, and with the encoder's padding mask."""
     from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         tol = teacher_tolerance(torch, dt)
-        for B, Td, T, W, A, ww in TEACHER_SHAPES:
-            for with_masks in (False, True):
-                ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A,
-                                      with_masks, 7)
-                got = tk.teacher_fwd(*ins, ww)
-                torch.cuda.synchronize()
-                want = tk.teacher_fwd_reference(*ins, ww)
-                err, share = tk.teacher_fwd_agreement(got, want, *tol)
-                # float32 rows part ways only by accident; bf16 rows do
-                # where an ulp of the alignment moves t0 past an integer
-                # (measured: 0.7-1.4% of the pairs at the flagship shape)
-                check(share >= (0.99 if dt == torch.float32 else 0.9),
-                      'K6 %s: only %.3f of the (step, row) pairs could be '
-                      'compared' % (_dtype_name(dt), share))
-                errs[(_dtype_name(dt), B, with_masks)] = err
-                print('K6 %-8s B=%-3d Td=%-3d T=%-3d W=%-3d A=%-3d masks=%d '
-                      'max|kernel-plain| = %.3g over %.1f%% of the (step, '
-                      'row) pairs (atol %g rtol %g, windows may differ where '
-                      't0 is within %g*t0 of an integer)'
-                      % (_dtype_name(dt), B, Td, T, W, A, with_masks, err,
-                         100 * share, *tol))
+        for B, Td, T, W, A, ww, with_masks, padded in _teacher_cases():
+            ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A,
+                                  with_masks, 7)
+            enc_mask = (_teacher_padding_mask(torch, dev, B, T, 12, ww)
+                        if padded else None)
+            got = tk.teacher_fwd(*ins, ww, enc_mask)
+            torch.cuda.synchronize()
+            want = tk.teacher_fwd_reference(*ins, ww, enc_mask)
+            err, share = tk.teacher_fwd_agreement(got, want, *tol)
+            # float32 rows part ways only by accident; bf16 rows do where
+            # an ulp of the alignment moves t0 past an integer (measured:
+            # 0.7-1.4% of the pairs at the flagship shape)
+            check(share >= (0.99 if dt == torch.float32 else 0.9),
+                  'K6 %s: only %.3f of the (step, row) pairs could be '
+                  'compared' % (_dtype_name(dt), share))
+            if padded:
+                aa = got[2]
+                check(not bool(aa[:, enc_mask == 0].any())
+                      and not bool(aa[:, 1:4:2].any()),
+                      'K6 %s: an alignment on a padded position'
+                      % _dtype_name(dt))
+            errs[(_dtype_name(dt), B, T, with_masks, padded)] = err
+            print('K6 %-8s B=%-3d Td=%-3d T=%-3d W=%-3d A=%-3d masks=%d '
+                  'padded=%d max|kernel-plain| = %.3g over %.1f%% of the '
+                  '(step, row) pairs (atol %g rtol %g, windows may differ '
+                  'where t0 is within %g*t0 of an integer)'
+                  % (_dtype_name(dt), B, Td, T, W, A, with_masks, padded,
+                     err, 100 * share, *tol))
     return errs
 
 
 def phase_k7(torch, dev):
     """K7 against its plain version on the residuals the plain K6 saved,
-    then TeacherTopFused against autograd through the dense body."""
+    with and without the encoder's padding mask, then TeacherTopFused
+    against autograd through the dense body."""
     from cor_asv_ann_tpu_torch.models.seq2seq import _teacher_body
     from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         atol, rtol, _ = teacher_tolerance(torch, dt)
-        for B, Td, T, W, A, ww in TEACHER_SHAPES:
-            for with_masks in (False, True):
-                ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A,
-                                      with_masks, 8)
-                zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 \
-                    = ins
-                hs, cs, aa, zs = tk.teacher_fwd_reference(*ins, ww)
-                gen = torch.Generator().manual_seed(9)
-                # cotangents of the size a mean loss hands back
-                g = (torch.randn(*hs.shape, generator=gen) * 0.1).to(dt) \
-                    .to(dev)
-                args = (zs, g, _shift(torch, hs, h0, False),
-                        _shift(torch, cs, c0, False), cs, aa, u, att, Kc, R,
-                        W_a, v, b_UW, maskc, ww)
-                got = tk.teacher_bwd(*args)
-                torch.cuda.synchronize()
-                want = tk.teacher_bwd_reference(*args)
-                err = 0.0
-                for g_, w in zip(got, want):
-                    # relative to the gradient's own scale
-                    scale = max(1.0, w.float().abs().max().item())
-                    torch.testing.assert_close(g_.float() / scale,
-                                               w.float() / scale,
-                                               atol=atol, rtol=rtol)
-                    err = max(err, ((g_.float() - w.float()).abs().max()
-                                    / scale).item())
-                errs[(_dtype_name(dt), B, with_masks)] = err
-                print('K7 %-8s B=%-3d Td=%-3d T=%-3d W=%-3d A=%-3d masks=%d '
-                      'max|kernel-plain|/scale = %.3g (atol %g rtol %g)'
-                      % (_dtype_name(dt), B, Td, T, W, A, with_masks, err,
-                         atol, rtol))
+        for B, Td, T, W, A, ww, with_masks, padded in _teacher_cases():
+            ins = _teacher_inputs(torch, dev, dt, B, Td, T, W, A,
+                                  with_masks, 8)
+            zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
+            enc_mask = (_teacher_padding_mask(torch, dev, B, T, 13, ww)
+                        if padded else None)
+            hs, cs, aa, zs = tk.teacher_fwd_reference(*ins, ww, enc_mask)
+            gen = torch.Generator().manual_seed(9)
+            # cotangents of the size a mean loss hands back
+            g = (torch.randn(*hs.shape, generator=gen) * 0.1).to(dt).to(dev)
+            args = (zs, g, _shift(torch, hs, h0, False),
+                    _shift(torch, cs, c0, False), cs, aa, u, att, Kc, R,
+                    W_a, v, b_UW, maskc, ww, enc_mask)
+            got = tk.teacher_bwd(*args)
+            torch.cuda.synchronize()
+            want = tk.teacher_bwd_reference(*args)
+            err = 0.0
+            for g_, w in zip(got, want):
+                # relative to the gradient's own scale
+                scale = max(1.0, w.float().abs().max().item())
+                torch.testing.assert_close(g_.float() / scale,
+                                           w.float() / scale,
+                                           atol=atol, rtol=rtol)
+                err = max(err, ((g_.float() - w.float()).abs().max()
+                                / scale).item())
+            if padded:
+                padding = enc_mask == 0
+                check(not bool(got[1][:, padding].any())
+                      and not bool(got[7][padding].any())
+                      and not bool(got[8][padding].any()),
+                      'K7 %s: a gradient on a padded position'
+                      % _dtype_name(dt))
+            errs[(_dtype_name(dt), B, T, with_masks, padded)] = err
+            print('K7 %-8s B=%-3d Td=%-3d T=%-3d W=%-3d A=%-3d masks=%d '
+                  'padded=%d max|kernel-plain|/scale = %.3g (atol %g rtol '
+                  '%g)' % (_dtype_name(dt), B, Td, T, W, A, with_masks,
+                           padded, err, atol, rtol))
     # the autograd.Function against autograd through the dense body, f32
     B, Td, T, W, A, ww = 9, 10, 20, 512, 512, 5
     gen = torch.Generator().manual_seed(10)
@@ -536,11 +571,15 @@ def phase_k7(torch, dev):
     h0, c0 = leaf(B, W, scale=.2), leaf(B, W, scale=.2)
     leaves = [top['W_a'], top['v_a'], top['b_UW'], top['b_v'],
               *top['cell'].values(), xs, att, u, h0, c0]
-    for with_masks in (False, True):
+    for with_masks, padded in ((False, False), (True, False), (True, True)):
         masks = (((torch.rand(4, B, W + A, generator=gen) < 0.8) / 0.8)
                  .to(dev) if with_masks else None)
-        out = tk.teacher_top_fused(top, xs, att, u, h0, c0, masks, ww)
-        ref = _teacher_body(top, xs, att, u, h0, c0, masks, ww, 0, None)
+        enc_mask = (_teacher_padding_mask(torch, dev, B, T, 14, ww)
+                    if padded else None)
+        out = tk.teacher_top_fused(top, xs, att, u, h0, c0, masks, ww,
+                                   enc_mask)
+        ref = _teacher_body(top, xs, att, u, h0, c0, masks, ww, 0,
+                            None if enc_mask is None else enc_mask.bool())
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
         worst = 0.0
         for g_, r in zip(torch.autograd.grad((out ** 2).sum(), leaves),
@@ -552,8 +591,8 @@ def phase_k7(torch, dev):
                                        atol=2e-4)
             worst = max(worst, ((g_ - r).abs().max() / scale).item())
         print('TeacherTopFused vs autograd through the dense body, f32, '
-              'masks=%d: max gradient diff / scale = %.3g (rtol 2e-3 atol '
-              '2e-4)' % (with_masks, worst))
+              'masks=%d padded=%d: max gradient diff / scale = %.3g (rtol '
+              '2e-3 atol 2e-4)' % (with_masks, padded, worst))
     return errs
 
 
@@ -639,13 +678,16 @@ def long_line_steps(torch, dev, data, batch, launches_of):
     return report
 
 
-def masked_route_gaps(torch, dev, s2s, batch):
+def masked_route_gaps(torch, dev, s2s, batch, flag):
     """A mask_padding model's loss and gradients on one batch with the
-    training scans on K4/K5 (`_FUSED_TRAIN_SCAN` 'auto') against the same
-    step on the step-by-step masked scan ('off'), float32, with the same
-    dropout draws: the loss's relative gap and the largest gradient gap
-    relative to its leaf's scale (at least 1e-4 of the largest gradient:
-    some leaves of a fresh model get almost none)."""
+    kernels that `flag` of models/seq2seq.py switches on ('auto': the
+    training scans on K4/K5 for `_FUSED_TRAIN_SCAN`, the top layer on
+    K6/K7 for `_TEACHER_KERNEL`) against the same step with them 'off'
+    (the step-by-step masked scan; the dense top layer under autograd),
+    float32, with the same dropout draws: the loss's relative gap and the
+    largest gradient gap relative to its leaf's scale (at least 1e-4 of
+    the largest gradient: some leaves of a fresh model get almost
+    none)."""
     from cor_asv_ann_tpu_torch.models import seq2seq
     from cor_asv_ann_tpu_torch.models import train as T
     from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
@@ -653,7 +695,7 @@ def masked_route_gaps(torch, dev, s2s, batch):
     tensors = [torch.as_tensor(a).to(dev) for a in batch]
     got = {}
     for mode in ('auto', 'off'):
-        seq2seq._FUSED_TRAIN_SCAN = mode
+        setattr(seq2seq, flag, mode)
         try:
             params = tree_map(lambda t: t.requires_grad_(),
                               params_from_numpy(s2s.params, dev))
@@ -661,7 +703,7 @@ def masked_route_gaps(torch, dev, s2s, batch):
                              torch.Generator().manual_seed(3))
             grads = torch.autograd.grad(loss, tree_leaves(params))
         finally:
-            seq2seq._FUSED_TRAIN_SCAN = 'auto'
+            setattr(seq2seq, flag, 'auto')
         got[mode] = float(loss.detach()), grads
     (l_on, g_on), (l_off, g_off) = got['auto'], got['off']
     loss_gap = abs(l_on - l_off) / abs(l_off)
@@ -672,16 +714,17 @@ def masked_route_gaps(torch, dev, s2s, batch):
         torch.testing.assert_close(g / scale, r / scale, rtol=2e-4,
                                    atol=2e-5)
         grad_gap = max(grad_gap, ((g - r).abs().max() / scale).item())
-    check(loss_gap <= 1e-6, 'mask_padding float32: the loss on K4/K5 is %r, '
-          'on the masked plain scan %r' % (l_on, l_off))
+    check(loss_gap <= 1e-6, 'mask_padding float32, %s: the loss with the '
+          'kernels is %r, without %r' % (flag, l_on, l_off))
     return loss_gap, grad_gap
 
 
 def train_path(torch, dev, tmp, launches_of):
     """The training path at width 512, depth 2, batch 256: train_steps in
-    float32 and bfloat16 under both padding modes (without masked padding
-    through the fused teacher kernels; with it, float32, the loss and
-    gradients held against the masked plain scan), steps at T = Td = 128
+    float32 and bfloat16 under both padding modes (both through the fused
+    teacher kernels; with masked padding, float32, the loss and gradients
+    held against the masked plain scan and against the dense top layer),
+    steps at T = Td = 128
     with those kernels on and off, then train() for one epoch, save(),
     reload and serve from the file. Returns per-regime step times, peak
     memory and launch counts."""
@@ -698,10 +741,10 @@ def train_path(torch, dev, tmp, launches_of):
     for keras_padding in (False, True):
         # what the configuration implies: the two directions of encoder
         # layer 1, encoder layer 2 and the lower decoder layer scan
-        # through K4/K5 either way (the encoder's with its padding mask);
-        # without masked padding the top layer runs through K6/K7, with
-        # it the top layer stays on the dense body
-        scans, teacher = (4, 1) if keras_padding else (4, 0)
+        # through K4/K5 either way (the encoder's with its padding mask),
+        # and the top layer runs through K6/K7 (with the encoder's
+        # padding mask where the model masks padding)
+        scans, teacher = 4, 1
         for compute in ('float32', 'bfloat16'):
             s2s = new_trainer(dev, data, keras_padding, compute)
             sources, confs, targets, _ = next(gen_line_batches(
@@ -739,15 +782,20 @@ def train_path(torch, dev, tmp, launches_of):
             gaps = {}
             if not keras_padding and compute == 'float32':
                 # the masked encoder's scans on K4/K5 against the same
-                # step on the masked plain scan
-                loss_gap, grad_gap = masked_route_gaps(torch, dev, s2s,
-                                                       batch)
-                gaps = dict(route_off_loss_gap=loss_gap,
-                            route_off_grad_gap=grad_gap)
-                print('train_step %s: K4/K5 against the masked plain scan, '
-                      'loss gap %.3g (relative, bar 1e-6), gradient gap / '
-                      'scale %.3g (rtol 2e-4 atol 2e-5)'
-                      % (name, loss_gap, grad_gap))
+                # step on the masked plain scan, and the masked top layer
+                # on K6/K7 against the same step on the dense body
+                for flag, key, what in (
+                        ('_FUSED_TRAIN_SCAN', 'route_off', 'K4/K5 against '
+                         'the masked plain scan'),
+                        ('_TEACHER_KERNEL', 'teacher_off', 'K6/K7 against '
+                         'the masked dense top layer')):
+                    loss_gap, grad_gap = masked_route_gaps(torch, dev, s2s,
+                                                           batch, flag)
+                    gaps.update({key + '_loss_gap': loss_gap,
+                                 key + '_grad_gap': grad_gap})
+                    print('train_step %s: %s, loss gap %.3g (relative, bar '
+                          '1e-6), gradient gap / scale %.3g (rtol 2e-4 atol '
+                          '2e-5)' % (name, what, loss_gap, grad_gap))
             check(per_step == {'lstm_scan_fwd': scans,
                                'lstm_scan_bwd': scans,
                                'teacher_fwd': teacher,
@@ -771,7 +819,7 @@ def train_path(torch, dev, tmp, launches_of):
                      teacher, teacher))
     report.update(long_line_steps(torch, dev, data, batch, launches_of))
     # the whole loop: one short epoch, model file out, served back in
-    # (without masked padding, so that it trains through K6/K7 too)
+    # (without masked padding)
     s2s = new_trainer(dev, data, True, 'bfloat16')
     s2s.epochs = 1
     history = s2s.train([data], checkpoint_dir=tmp)

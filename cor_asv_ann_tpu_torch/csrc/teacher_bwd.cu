@@ -21,8 +21,12 @@
 // emitting dz, ds, dctx, dwvec per step (dt), dh0, dc0, the per-row dva
 // partials (B, W), du (B, T, W) and datt (B, T, A) in float32. A step's window
 // is found from the first non-zero entry of aa[t] (2*ww + 1 positions from
-// there): where a is 0 every term is 0. Every sum runs in a fixed order, with
-// no atomics: two launches give the same bits.
+// there): where a is 0 every term is 0, and a row whose aa[t] is all zero (a
+// padding mask left its window empty) adds nothing. Under K6's optional (B, T)
+// byte mask the window terms take only the positions whose byte is 1, as K6's
+// softmax did: a padded position gets da = ds = 0 and no read-modify-write of
+// du or datt (a null pointer loads no byte). Every sum runs in a fixed order,
+// with no atomics: two launches give the same bits.
 //
 // What bounds it on an H100: in bf16 the bytes of the stacks (0.19 ms at
 // B=256, Td=T=128, W=A=512), in float32 the operations of the four products,
@@ -90,6 +94,7 @@ __host__ __device__ inline int window_max(int ww) { return 2 * ww + 1; }
 
 template <typename T> struct Bwd {
   const T *zs, *g, *hprev, *cprev, *cs, *aa, *u, *att, *Kc, *R, *Wa, *WaT, *v, *bUW, *maskc;
+  const uint8_t* mask;  // (B, T), 0 at a padded position of a row; or null
   T *dz, *ds, *dctx, *dwvec;
   float *dh0, *dc0, *dva, *du, *datt;
   T* wv;        // scratch (Td, B, W): wvec of every step
@@ -108,9 +113,10 @@ template <typename T> size_t carry_smem() {
   return stages > out ? stages : out;
 }
 
-// of the attention kernel: dctx, the window's a, da, ds, and its start and size
+// of the attention kernel: dctx, the window's a, da, ds, its start and size,
+// and whether each of its positions is valid
 size_t attention_smem(int A, int ww) {
-  return ((size_t)A + 3 * (size_t)window_max(ww) + 2) * sizeof(float);
+  return ((size_t)A + 4 * (size_t)window_max(ww) + 2) * sizeof(float);
 }
 
 // what the cell backward of step t at (row, n) reads
@@ -218,6 +224,7 @@ __global__ void __launch_bounds__(NT) teacher_bwd_attention(const Bwd<T> a, int 
   float* da_s = aw_s + WM;                           // [WM]
   float* ds_s = da_s + WM;                           // [WM]  r(ds)
   int* win_s = reinterpret_cast<int*>(ds_s + WM);    // first visible position, count
+  int* ok_s = win_s + 2;                             // [WM]  1 where the mask holds
   const size_t at = (size_t)t * B + row;
   if (warp == 0) {
     // this step's window: from the first non-zero entry of aa[t]
@@ -235,7 +242,11 @@ __global__ void __launch_bounds__(NT) teacher_bwd_attention(const Bwd<T> a, int 
     for (int o = 16; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(0xffffffffu, first, o));
     const int cnt = first == INT_MAX ? 0 : min(WM, Tn - first);
     if (first == INT_MAX) first = 0;
-    for (int j = lane; j < cnt; j += 32) aw_s[j] = to_f<T>(arow[first + j]);
+    const uint8_t* mrow = a.mask ? a.mask + (size_t)row * Tn + first : nullptr;
+    for (int j = lane; j < cnt; j += 32) {
+      aw_s[j] = to_f<T>(arow[first + j]);
+      ok_s[j] = mrow ? mrow[j] : 1;
+    }
     if (lane == 0) {
       win_s[0] = first;
       win_s[1] = cnt;
@@ -267,12 +278,16 @@ __global__ void __launch_bounds__(NT) teacher_bwd_attention(const Bwd<T> a, int 
         for (int q = 0; q < JB; ++q) x[q] = p0[(size_t)min(j0 + q, cnt - 1) * A];
 #pragma unroll
         for (int q = 0; q < JB; ++q)
-          if (j0 + q < cnt) p0[(size_t)(j0 + q) * A] = x[q] + aw_s[j0 + q] * d;
+          if (j0 + q < cnt && ok_s[j0 + q]) p0[(size_t)(j0 + q) * A] = x[q] + aw_s[j0 + q] * d;
       }
     }
     return;
   }
   for (int j = warp; j < cnt; j += NW) {
+    if (!ok_s[j]) {
+      if (lane == 0) da_s[j] = 0.0f;
+      continue;
+    }
     const T* arow = a.att + ((size_t)row * Tn + lo + j) * A;
     float acc = 0.0f;
     for (int q = lane; q < A / CG; q += 32) {
@@ -288,7 +303,7 @@ __global__ void __launch_bounds__(NT) teacher_bwd_attention(const Bwd<T> a, int 
   if (tid == 0) {
     float dot = 0.0f;
     for (int j = 0; j < cnt; ++j) dot = fmaf(aw_s[j], da_s[j], dot);
-    for (int j = 0; j < cnt; ++j) ds_s[j] = rnd<T>(aw_s[j] * (da_s[j] - dot));
+    for (int j = 0; j < cnt; ++j) ds_s[j] = ok_s[j] ? rnd<T>(aw_s[j] * (da_s[j] - dot)) : 0.0f;
   }
   __syncthreads();
   if (part == 0)
@@ -310,7 +325,7 @@ __global__ void __launch_bounds__(NT) teacher_bwd_attention(const Bwd<T> a, int 
       }
 #pragma unroll
       for (int q = 0; q < JB; ++q)
-        if (j0 + q < cnt) {
+        if (j0 + q < cnt && ok_s[j0 + q]) {
           const float e = rnd<T>(tanhf(rnd<T>(wv + uu[q])));
           const float d = ds_s[j0 + q];
           acc = fmaf(e, d, acc);
@@ -430,12 +445,13 @@ template <typename T> cudaError_t launch(const Bwd<T>& a, cudaStream_t s) {
 }
 
 template <typename T>
-cudaError_t launch_dtype(const void* const* in, void* const* out, int Td, int B, int Tn, int W,
-                         int A, int ww, cudaStream_t s) {
+cudaError_t launch_dtype(const void* const* in, void* const* out, const void* mask, int Td, int B,
+                         int Tn, int W, int A, int ww, cudaStream_t s) {
   const Bwd<T> a{(const T*)in[0],  (const T*)in[1],  (const T*)in[2],  (const T*)in[3],
                  (const T*)in[4],  (const T*)in[5],  (const T*)in[6],  (const T*)in[7],
                  (const T*)in[8],  (const T*)in[9],  (const T*)in[10], (const T*)in[11],
-                 (const T*)in[12], (const T*)in[13], (const T*)in[14], (T*)out[0],
+                 (const T*)in[12], (const T*)in[13], (const T*)in[14], (const uint8_t*)mask,
+                 (T*)out[0],
                  (T*)out[1],       (T*)out[2],       (T*)out[3],       (float*)out[4],
                  (float*)out[5],   (float*)out[6],   (float*)out[7],   (float*)out[8],
                  (T*)out[9],       (float*)out[10],  Td,               B,
@@ -455,13 +471,15 @@ extern "C" int teacher_bwd_supported(int W, int A, int ww) {
 // att, Kc (A, 4W), R (W, 4W), W_a, W_a^T, v, b_UW, maskc; `out`: dz, ds, dctx,
 // dwvec (dt), dh0, dc0, dva, du, datt (float32; du and datt zeroed by the
 // caller), then the scratch: wvec (Td, B, W) in dt and the gate partials
-// (4, B, A + W) float32. Issues 2 + 3*Td launches on `stream`; returns the
-// first CUDA error.
-extern "C" int teacher_bwd_launch(int dtype, const void* const* in, void* const* out, int Td,
-                                  int B, int Tn, int W, int A, int ww, void* stream) {
+// (4, B, A + W) float32. `mask`: null, or K6's (B, T) bytes. Issues
+// 2 + 3*Td launches on `stream`; returns the first CUDA error.
+extern "C" int teacher_bwd_launch(int dtype, const void* const* in, void* const* out,
+                                  const void* mask, int Td, int B, int Tn, int W, int A, int ww,
+                                  void* stream) {
   if (!shapes_ok(Td, B, Tn, W, A, ww)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_dtype<float>(in, out, Td, B, Tn, W, A, ww, s);
-  if (dtype == 1) return (int)launch_dtype<__nv_bfloat16>(in, out, Td, B, Tn, W, A, ww, s);
+  if (dtype == 0) return (int)launch_dtype<float>(in, out, mask, Td, B, Tn, W, A, ww, s);
+  if (dtype == 1)
+    return (int)launch_dtype<__nv_bfloat16>(in, out, mask, Td, B, Tn, W, A, ww, s);
   return (int)cudaErrorInvalidValue;
 }

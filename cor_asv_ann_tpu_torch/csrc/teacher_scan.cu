@@ -11,8 +11,10 @@
 //
 //     wvec = r(r(h.W_a) + b_UW)
 //     t0 = sum_i a_i*i + 1 (float32); position i is visible iff |t0 - i| <= ww
+//       and, under a padding mask, its byte is 1
 //     s_i = r(r(sum_n r(tanh(r(wvec + u_i)))_n * v_n) + b_v)
-//     a = r(softmax over the visible i, float32); aa[t] = a (dense row, 0 elsewhere)
+//     a = r(softmax over the visible i, float32); aa[t] = a (dense row, 0 elsewhere;
+//       a row with no visible position gets a = 0, so ctx = 0 and the next t0 = 1)
 //     ctx = r(sum_i a_i * attended_i);  cg_g = r(ctx * maskc_g)
 //     z = r(r(zx[t] + sum_g cg_g.Kc_g + h.R) + bias);   zs[t] = z
 //     i, f, o = 1/(1+exp(-z)), g = tanh(z), every intermediate in dt
@@ -35,12 +37,11 @@
 //   product    h.[W_a | R] per 64-row tile x 64-column slice of the 5W columns
 //              (B=256, W=512: 160 blocks): wvec in the weight dtype to a
 //              scratch (B, W), h.R as float32 to a scratch (B, 4W);
-//   attention  a block of 512 threads a row: t0 from the previous step's
-//              window (a scratch of 2*ww+1 alignment values with its start and
-//              size a row), the visible positions, their energies (a warp for
-//              each 256 columns of a position), the float32 softmax, the dense
-//              aa[t] row, ctx and the four masked cg_g to a scratch (4, B, A)
-//              in the weight dtype;
+//   attention  a block of 512 threads a row: t0 as the previous step's
+//              attention left it in a scratch (B), the visible positions, their
+//              energies (a warp for each 256 columns of a position), the float32
+//              softmax, the dense aa[t] row, the next step's t0, ctx and the four
+//              masked cg_g to a scratch (4, B, A) in the weight dtype;
 //   gates      cg_g.Kc_g per 64-row tile x 16-unit slice (128 blocks): the
 //              block owns its units' four gate columns of Kc, each gate's
 //              warps or threads reading that gate's cg rows, and the Keras
@@ -52,10 +53,16 @@
 // chunk of its product, the attention's context rows and masks to registers
 // before its energies.
 // The window mask leaves at most 2*ww+1 visible positions per row and step,
-// all others get exp(-1e30 - m) = 0 exactly in float32, so only the visible
-// rows of u and attended are read (bit-identical to the dense form; without a
-// padding mask a row is never all-masked for ww >= 1 because t0 lies in
-// [1, T]; a row with no visible position would get a zero alignment).
+// all others get exp(-1e30 - m) = 0 exactly in float32, so only the rows of u
+// and attended inside the window are read (bit-identical to the dense form).
+// Without a padding mask (a null pointer, no byte loaded) a row is never
+// all-masked for ww >= 1, because t0 lies in [1, T]. An optional (B, T) byte
+// mask, the encoder's padding mask, narrows the window to the positions whose
+// byte is 1: the attention loads a byte a window position, a masked position
+// gets a = 0, and a row whose window holds no valid position (an all-padding
+// row, or one whose first ww + 2 positions are padding: a window that held a
+// valid position leads to one that holds another) gets an all-zero aa[t] row,
+// a zero context and zero cg, and the next step's t0 is 1, as in the dense form.
 // The products stream both operands through shared memory by cp.async with
 // NS - 1 chunks in flight: bf16 on tensor cores (mma.sync m16n8k16,
 // ldmatrix.x4 fragments, float32 accumulators), float32 as exact FMA register
@@ -89,17 +96,38 @@ constexpr int NWA = NTA / 32;
 
 __host__ __device__ inline int window_max(int ww) { return 2 * ww + 1; }
 
+// t0 - 1 = sum_i a_i*i over a row's window (`aw`: `pcnt` values from position
+// `plo`), summed in the order in which the dense form's product a . positions
+// (ops/attention.py: _window_center, a float32 matrix-vector product) sums it on
+// an H100 (cuBLAS's gemv; found by probing it at B = 8 to 1024): a line of up to
+// 56 positions as two partial sums over its halves, a longer one as 32 partial
+// sums over blocks of ceil(T/32) consecutive positions, each in order by fma,
+// combined by an xor butterfly. The window's placement is discontinuous in t0:
+// at initialisation the alignment is close to uniform, so t0 falls within an ulp
+// of an integer where a window holds an odd number of valid positions, and a sum
+// in another order moves the window's edge. Every lane of the calling warp gets
+// the same value.
+__device__ __forceinline__ float window_centre(const float* __restrict__ aw, int plo, int pcnt,
+                                               int Tn, int lane) {
+  const int lanes = Tn <= 56 ? 2 : 32, n = (Tn + lanes - 1) / lanes;
+  float acc = 0.0f;
+  if (lane < lanes)
+    for (int i = max(lane * n, plo); i < min((lane + 1) * n, plo + pcnt); ++i)
+      acc = fmaf(aw[i - plo], (float)i, acc);
+  return warp_sum(acc);
+}
+
 template <typename T> struct Fwd {
   const float* zx;
   const T *u, *att, *Kc, *WR, *v, *bUW;
   const float* b_v;
   const T *bias, *maskc, *h0, *c0;
+  const uint8_t* mask;  // (B, T), 0 at a padded position of a row; or null
   T *hs, *cs, *aa, *zs;
   T* wv;       // scratch (B, W): this step's wvec
   float* zr;   // scratch (B, 4W): this step's h.R
   T* cg;       // scratch (4, B, A): this step's masked context per gate
-  float* aw;   // scratch (B, 2*ww+1): the window's alignment, then per row
-  int* win;    //   (B, 2) its first position and size
+  float* t0n;  // scratch (B): each row's window centre for the next step
   int Td, B, Tn, W, A, ww;
 };
 
@@ -186,10 +214,10 @@ __device__ __forceinline__ float lane_energy(const T* __restrict__ wv_row,
   return acc;
 }
 
-// step t's attention, a block a row. Every thread finds the window from the
-// previous step's (none at t = 0: t0 = 1); t0 - i is exact in float32, so
-// this is the dense form's own test |t0 - i| <= ww on the candidates around
-// floor(t0).
+// step t's attention, a block a row. Every thread finds the window from t0 (1
+// at t = 0, else what step t - 1 left: `window_centre`); t0 - i is exact in
+// float32, so this is the dense form's own test |t0 - i| <= ww on the
+// candidates around floor(t0).
 template <typename T>
 __global__ void __launch_bounds__(NTA) teacher_fwd_attention(const Fwd<T> a, int t) {
   extern __shared__ float4 smem4[];
@@ -198,13 +226,8 @@ __global__ void __launch_bounds__(NTA) teacher_fwd_attention(const Fwd<T> a, int
   const int P = ceil_div(a.W, ECOL);              // energy items a position
   float* s_s = reinterpret_cast<float*>(smem4);  // [WM] energies, then a
   float* p_s = s_s + WM;                          // [WM][P] the energies' parts
-  float t0 = 1.0f;
-  if (t > 0) {
-    const int plo = a.win[2 * row], pcnt = a.win[2 * row + 1];
-    float acc = 0.0f;
-    for (int j = 0; j < pcnt; ++j) acc = fmaf(a.aw[(size_t)row * WM + j], (float)(plo + j), acc);
-    t0 = acc + 1.0f;
-  }
+  // the previous step's attention left this row's window centre
+  const float t0 = t > 0 ? a.t0n[row] : 1.0f;
   const int c = (int)floorf(t0);
   int lo = 0, cnt = 0;
   for (int i = max(0, c - ww - 1); i <= min(Tn - 1, c + ww + 1); ++i)
@@ -241,32 +264,35 @@ __global__ void __launch_bounds__(NTA) teacher_fwd_attention(const Fwd<T> a, int
   __syncthreads();
   if (warp == 0) {
     const float b_vr = rnd<T>(*a.b_v);
+    const uint8_t* mrow = a.mask ? a.mask + (size_t)row * Tn + lo : nullptr;
     float m = -INFINITY, sum = 0.0f;
     for (int j = lane; j < cnt; j += 32) {
       float s = 0.0f;
       for (int q = 0; q < P; ++q) s += p_s[j * P + q];
-      s_s[j] = rnd<T>(rnd<T>(s) + b_vr);
+      // a padded position: no energy, so exp gives it 0
+      s_s[j] = mrow && !mrow[j] ? -INFINITY : rnd<T>(rnd<T>(s) + b_vr);
       m = fmaxf(m, s_s[j]);
     }
     m = warp_max(m);
+    // m is -inf only where the mask leaves the window empty: a = 0 there
+    const bool empty = m == -INFINITY;
     for (int j = lane; j < cnt; j += 32) {
-      const float p = expf(s_s[j] - m);
+      const float p = empty ? 0.0f : expf(s_s[j] - m);
       s_s[j] = p;
       sum += p;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < cnt; j += 32) s_s[j] = rnd<T>(s_s[j] / sum);
+    for (int j = lane; j < cnt; j += 32) s_s[j] = empty ? 0.0f : rnd<T>(s_s[j] / sum);
+    // the next step's window centre from this alignment
+    __syncwarp();
+    const float c0 = window_centre(s_s, lo, cnt, Tn, lane);
+    if (lane == 0) a.t0n[row] = c0 + 1.0f;
   }
   __syncthreads();
   const size_t at = (size_t)t * B + row;
   for (int p = tid; p < Tn; p += NTA) {
     const int j = p - lo;
     a.aa[at * Tn + p] = from_f<T>(j >= 0 && j < cnt ? s_s[j] : 0.0f);
-  }
-  for (int j = tid; j < cnt; j += NTA) a.aw[(size_t)row * WM + j] = s_s[j];
-  if (tid == 0) {
-    a.win[2 * row] = lo;
-    a.win[2 * row + 1] = cnt;
   }
   for (int k0 = 0; k0 < A; k0 += NTA) {
     if (k0 > 0) load_masks(k0);
@@ -407,15 +433,14 @@ template <typename T> cudaError_t launch(const Fwd<T>& a, cudaStream_t s) {
 }
 
 template <typename T>
-cudaError_t launch_dtype(const void* const* in, void* const* out, int Td, int B, int Tn, int W,
-                         int A, int ww, cudaStream_t s) {
-  float* aw = (float*)out[7];
+cudaError_t launch_dtype(const void* const* in, void* const* out, const void* mask, int Td, int B,
+                         int Tn, int W, int A, int ww, cudaStream_t s) {
   const Fwd<T> a{(const float*)in[0], (const T*)in[1],  (const T*)in[2],  (const T*)in[3],
                  (const T*)in[4],     (const T*)in[5],  (const T*)in[6],  (const float*)in[7],
                  (const T*)in[8],     (const T*)in[9],  (const T*)in[10], (const T*)in[11],
+                 (const uint8_t*)mask,
                  (T*)out[0],          (T*)out[1],       (T*)out[2],       (T*)out[3],
-                 (T*)out[4],          (float*)out[5],   (T*)out[6],       aw,
-                 (int*)(aw + (size_t)B * window_max(ww)),
+                 (T*)out[4],          (float*)out[5],   (T*)out[6],       (float*)out[7],
                  Td,                  B,                Tn,               W,
                  A,                   ww};
   return launch<T>(a, s);
@@ -435,14 +460,16 @@ extern "C" int teacher_scan_supported(int W, int A, int ww) {
 // K6. dtype: 0 = float32, 1 = bfloat16. `in`: zx (float32), u, att, Kc
 // (A, 4W), [W_a | R]^T (5W, W), v, b_UW, b_v (float32), bias, maskc, h0, c0;
 // `out`: hs, cs, aa, zs, then the scratch: wvec (B, W) in dt, h.R (B, 4W)
-// float32, cg (4, B, A) in dt, and the window (B * (2*ww + 1) float32 then
-// B * 2 int32). Issues 3*Td launches on `stream`; returns the first CUDA
-// error.
-extern "C" int teacher_fwd_launch(int dtype, const void* const* in, void* const* out, int Td,
-                                  int B, int Tn, int W, int A, int ww, void* stream) {
+// float32, cg (4, B, A) in dt, and each row's next window centre (B float32).
+// `mask`: null, or (B, T) bytes, 0 at a padded position.
+// Issues 3*Td launches on `stream`; returns the first CUDA error.
+extern "C" int teacher_fwd_launch(int dtype, const void* const* in, void* const* out,
+                                  const void* mask, int Td, int B, int Tn, int W, int A, int ww,
+                                  void* stream) {
   if (!shapes_ok(Td, B, Tn, W, A, ww)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_dtype<float>(in, out, Td, B, Tn, W, A, ww, s);
-  if (dtype == 1) return (int)launch_dtype<__nv_bfloat16>(in, out, Td, B, Tn, W, A, ww, s);
+  if (dtype == 0) return (int)launch_dtype<float>(in, out, mask, Td, B, Tn, W, A, ww, s);
+  if (dtype == 1)
+    return (int)launch_dtype<__nv_bfloat16>(in, out, mask, Td, B, Tn, W, A, ww, s);
   return (int)cudaErrorInvalidValue;
 }

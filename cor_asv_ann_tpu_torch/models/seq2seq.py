@@ -6,11 +6,11 @@ decoder with local additive attention on top, and a weight-tied softmax
 output. Functions take (params, config, tensors) and run on the device
 the tensors live on. Training uses the same decoder teacher-forced
 (`forward_teacher`): its LSTM scans, masked or not, go through the
-whole-sequence scan kernels (`_train_scan`), its top attention layer
-through the fused teacher kernels (ops/teacher_kernel.py), the windowed
-scan with the hand-written backward (models/teacher_scan.py) or the
-dense or windowed per-step body under autograd, chosen as the JAX
-package chooses (`_decode_teacher`).
+whole-sequence scan kernels (`_train_scan`), its top attention layer,
+masked or not, through the fused teacher kernels (ops/teacher_kernel.py),
+else the windowed scan with the hand-written backward
+(models/teacher_scan.py) or the dense or windowed per-step body under
+autograd, chosen as the JAX package chooses (`_decode_teacher`).
 
 Greedy contract (reference ``decode_batch_greedy``, seq2seq.py:1215-1286):
 the raw softmax is fed back as the next input, the pick is
@@ -64,7 +64,9 @@ _TEACHER_VJP_STACK_BUDGET = 2.5e9
 # Fused whole-sequence teacher kernels K6/K7 (ops/teacher_kernel.py):
 # 'auto' takes them for training on CUDA tensors where
 # `teacher_fused_supported` says so, 'on' forces `teacher_top_fused` (its
-# plain versions on CPU tensors, for tests), 'off' disables them.
+# plain versions on CPU tensors, for tests), 'off' disables them. Unlike
+# the JAX package's Pallas kernels they take the encoder's padding mask,
+# so mask_padding models train through them too.
 _TEACHER_KERNEL = 'auto'
 # The mesh (parallel/mesh.py) over whose 'data' axis the training batch
 # in flight is sharded, None otherwise: `train_step` under a mesh sets it
@@ -301,13 +303,15 @@ def _decode_teacher(params, config, dec_input, states, attended, u,
     layers, then the top attention layer by one of four routes, chosen
     like the JAX package's ``_decode_teacher``:
 
-    - the fused kernels K6/K7 (`teacher_top_fused`) for training without
-      a padding mask, where `_TEACHER_KERNEL` allows;
+    - the fused kernels K6/K7 (`teacher_top_fused`) for training, with
+      the padding mask where the model has one (the JAX package's
+      kernels take none), where `_TEACHER_KERNEL` allows;
     - `teacher_top_scan` (windowed, hand-written backward) for training
       of long lines, or when `_TEACHER_VJP` forces it;
     - the windowed per-step body for forward-only long lines;
-    - the dense per-step body otherwise (eval, padding masks below the
-      windowed threshold, global attention). Under autograd it keeps
+    - the dense per-step body otherwise (eval, training with the kernels
+      off or on CPU tensors below the windowed threshold, global
+      attention). Under autograd it keeps
       every step's (B, T, W) energy tanh for the backward pass, where
       the JAX package rematerialises it: Td*B*T*W values of the weight
       dtype at once."""
@@ -366,12 +370,16 @@ def _decode_teacher(params, config, dec_input, states, attended, u,
         use_windowed = False
     use_kernel = False
     if train and _TEACHER_KERNEL != 'off' and ww > 0 \
-            and enc_mask is None and _TEACHER_ATTENTION != 'dense':
+            and _TEACHER_ATTENTION != 'dense':
         use_kernel = _TEACHER_KERNEL == 'on' or teacher_fused_supported(
-            top, B, Td, T_enc, W, A, has_enc_mask=False, ww=ww,
-            mesh=_TRAIN_MESH)
+            top, B, Td, T_enc, W, A, ww=ww, mesh=_TRAIN_MESH)
+    if train:
+        profiling.count('training.teacher_calls')
+        if use_kernel:
+            profiling.count('training.teacher_kernel_calls')
     if use_kernel:
-        out2 = teacher_top_fused(top, out, attended, u, h0, c0, masks, ww)
+        out2 = teacher_top_fused(top, out, attended, u, h0, c0, masks, ww,
+                                 enc_mask)
     elif use_manual_vjp:
         mask_f = (enc_mask.to(attended.dtype) if enc_mask is not None
                   else None)

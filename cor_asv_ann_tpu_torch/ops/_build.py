@@ -48,9 +48,9 @@ SIGNATURES = {
     'lstm_scan_fwd_launch': (I, [I] + [P] * 10 + [I] * 6 + [P]),
     'lstm_scan_bwd_launch': (I, [I] + [P] * 13 + [I] * 6 + [P]),
     'teacher_scan_supported': (I, [I] * 3),
-    'teacher_fwd_launch': (I, [I] + [P] * 2 + [I] * 6 + [P]),
+    'teacher_fwd_launch': (I, [I] + [P] * 3 + [I] * 6 + [P]),
     'teacher_bwd_supported': (I, [I] * 3),
-    'teacher_bwd_launch': (I, [I] + [P] * 2 + [I] * 6 + [P]),
+    'teacher_bwd_launch': (I, [I] + [P] * 3 + [I] * 6 + [P]),
     'decode_step_supported': (I, [I] * 4),
     'decode_step_rows_per_tile': (I, [I] * 4),
     'decode_step_launch': (I, [I] * 2 + [P] * 2 + [I] * 8 + [P]),

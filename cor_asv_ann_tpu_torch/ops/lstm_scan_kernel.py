@@ -138,15 +138,15 @@ def _check(name, tensors, dt, dev, f32_tensors=()):
                                  % (name, want, dev))
 
 
-def _mask_ptr(name, mask, dev, T, B):
+def _mask_ptr(name, mask, dev, *shape):
     """The launchers' mask argument: None, or the address of a contiguous
-    (T, B) uint8 tensor on `dev`."""
+    uint8 tensor of `shape` on `dev`."""
     if mask is None:
         return None
     if mask.device != dev or mask.dtype != torch.uint8 \
-            or mask.shape != (T, B) or not mask.is_contiguous():
-        raise ValueError('%s: a contiguous (T, B) uint8 mask on %s expected'
-                         % (name, dev))
+            or mask.shape != shape or not mask.is_contiguous():
+        raise ValueError('%s: a contiguous uint8 mask of shape %s on %s '
+                         'expected' % (name, shape, dev))
     return mask.data_ptr()
 
 

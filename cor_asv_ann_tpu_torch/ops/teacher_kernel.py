@@ -7,7 +7,8 @@ _fwd_kernel`` (K6) and ``_b1_kernel`` (K7), their ``custom_vjp``
 (``teacher_top_fused``) and ``teacher_fused_supported``. The forward
 runs all Td steps of the top layer: additive attention energies against
 the precomputed ``u``, masked to the window ``|t0 - i| <= ww`` around
-the expected source position of the carried alignment, float32 softmax
+the expected source position of the carried alignment and, where the
+model masks padding, to the encoder's valid positions, float32 softmax
 and context, the per-gate masked cell product and the Keras gates; one
 C call issues its stage kernels (``FWD_STAGES``: per step the products
 h.[W_a | R], the attention a block a row, the gate products with the
@@ -25,13 +26,21 @@ The residual ``aa`` is the dense alignment row per step, as in the JAX
 package; the CUDA kernels read and write only its window (at most
 ``2*ww + 1`` consecutive positions, everything else is exactly 0), and
 K7 finds a step's window from the first non-zero entry of ``aa[t]``.
+Under a padding mask a row whose window holds no valid position gets an
+all-zero ``aa[t]`` and a zero context, and the next step's window centre
+is 1, as in the dense step (``ops/attention.py``); the Pallas kernels take
+no padding mask, so there the JAX package runs the dense body instead.
+K6 sums the window centre in the order in which the dense step's
+float32 product sums it on the card (``csrc/teacher_scan.cu:
+window_centre``): the window's edge is discontinuous in it.
 
 The TPU kernels pad the batch to tiles, need ``W % 128 == 0``,
 ``T % 8 == 0`` and a VMEM budget. The CUDA kernels take any B, Td and T
 and widths that are multiples of 8 (16-byte loads; a block keeps at most
 a few floats a column of one row in shared memory, so only widths in the
-tens of thousands are refused), and they know no padding mask and no
-global attention (``ww >= 1``): `teacher_fused_supported`.
+tens of thousands are refused), with or without the encoder's (B, T)
+padding mask, and no global attention (``ww >= 1``):
+`teacher_fused_supported`.
 
 ``teacher_fwd_reference`` and ``teacher_bwd_reference`` are the plain
 versions: step-by-step PyTorch transcriptions of the two Pallas bodies
@@ -45,7 +54,8 @@ import ctypes
 import torch
 
 from . import _build
-from .lstm_scan_kernel import _DTYPE_CODES, _check, _gates, _on_cpu
+from .lstm_scan_kernel import (_DTYPE_CODES, _check, _gates, _mask_ptr,
+                               _on_cpu)
 
 F32 = torch.float32
 # K6's stage kernels in the order of a step (``teacher_fwd_<stage>`` in
@@ -69,12 +79,13 @@ def _wvec_of(h, W_a, b_UW):
 
 
 def teacher_fwd_reference(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias,
-                          maskc, h0, c0, ww):
+                          maskc, h0, c0, ww, enc_mask=None):
     """Plain K6. zx (Td, B, 4W) float32; u (B, T, W), att (B, T, A), Kc
     (A, 4W), R (W, 4W), W_a (W, W), v, b_UW (1, W), bias (1, 4W), maskc
-    (4, B, A), h0/c0 (B, W) in the weight dtype; b_v (1, 1) float32.
-    Returns hs, cs (Td, B, W), aa (Td, B, T), zs (Td, B, 4W) in the
-    weight dtype."""
+    (4, B, A), h0/c0 (B, W) in the weight dtype; b_v (1, 1) float32;
+    `enc_mask` None or (B, T), nonzero at the encoder's valid positions
+    (a row with none in its window gets a zero alignment). Returns hs, cs
+    (Td, B, W), aa (Td, B, T), zs (Td, B, 4W) in the weight dtype."""
     Td = zx.shape[0]
     T, W = u.shape[1], u.shape[2]
     dt = R.dtype
@@ -82,6 +93,7 @@ def teacher_fwd_reference(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias,
     a = torch.zeros((u.shape[0], T), dtype=dt, device=u.device)
     pos = torch.arange(T, dtype=F32, device=u.device)[None]
     v_f, att_f, b_vd = v.to(F32), att.to(F32), b_v[0, 0].to(dt)
+    valid = None if enc_mask is None else enc_mask.bool()
     hs, cs, aa, zs = [], [], [], []
     for t in range(Td):
         wvec = _wvec_of(h, W_a, b_UW)
@@ -89,9 +101,13 @@ def teacher_fwd_reference(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias,
         s = (e.to(F32) * v_f[None]).sum(dim=-1).to(dt) + b_vd
         t0 = (a.to(F32) * pos).sum(dim=-1, keepdim=True) + 1.0
         keep = torch.abs(t0 - pos) <= ww
+        if valid is not None:
+            keep = keep & valid
         sm = torch.where(keep, s.to(F32), torch.full_like(pos, -1e30))
         p = torch.exp(sm - sm.amax(dim=-1, keepdim=True))
         a = (p / p.sum(dim=-1, keepdim=True)).to(dt)
+        if valid is not None:
+            a = a * keep.any(dim=-1, keepdim=True).to(dt)
         ctx = (a.to(F32)[:, :, None] * att_f).sum(dim=1).to(dt)
         zc = torch.cat([_mm32((ctx * maskc[g]).to(dt),
                               Kc[:, g * W:(g + 1) * W]) for g in range(4)],
@@ -106,11 +122,12 @@ def teacher_fwd_reference(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias,
 
 
 def teacher_bwd_reference(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a,
-                          v, b_UW, maskc, ww):
+                          v, b_UW, maskc, ww, enc_mask=None):
     """Plain K7. g (Td, B, W): cotangent of hs in the weight dtype;
     hprev/cprev (Td, B, W): the state each step started from; the rest as
     in `teacher_fwd_reference` (`ww` only sizes the CUDA kernel's
-    window). Returns dz (Td, B, 4W), ds (Td, B, T), dctx (Td, B, A),
+    window; `enc_mask` zeroes da at padded positions, where aa is 0, so
+    that they add nothing). Returns dz (Td, B, 4W), ds (Td, B, T), dctx (Td, B, A),
     dwvec (Td, B, W) in the weight dtype and dh0, dc0, dva (B, W), du
     (B, T, W), datt (B, T, A) in float32."""
     Td, B, W = g.shape
@@ -144,6 +161,8 @@ def teacher_bwd_reference(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a,
         dctxs[t] = dctx.to(dt)
         dh_n = torch.matmul(dz_f, Rt)
         da = (att_f * dctx[:, None, :]).sum(dim=-1)
+        if enc_mask is not None:
+            da = da.masked_fill(~enc_mask.bool(), 0.0)
         ds = (a_f * (da - (a_f * da).sum(dim=-1, keepdim=True))).to(dt)
         dss[t] = ds
         ds3 = ds.to(F32)[:, :, None]
@@ -214,13 +233,14 @@ def _cuda_device(name, tensors):
 
 
 def teacher_fwd(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0,
-                ww):
+                ww, enc_mask=None):
     """K6: hs, cs (Td, B, W), aa (Td, B, T), zs (Td, B, 4W) (see
-    `teacher_fwd_reference`)."""
+    `teacher_fwd_reference`); on the card `enc_mask` is None or a
+    contiguous (B, T) uint8 tensor."""
     low = (u, att, Kc, R, W_a, v, b_UW, bias, maskc, h0, c0)
     if _on_cpu((zx, b_v) + low):
         return teacher_fwd_reference(zx, u, att, Kc, R, W_a, v, b_UW, b_v,
-                                     bias, maskc, h0, c0, ww)
+                                     bias, maskc, h0, c0, ww, enc_mask)
     dt = R.dtype
     dev = _cuda_device('teacher_fwd', low)
     _check('teacher_fwd', low, dt, dev, (zx, b_v))
@@ -233,6 +253,7 @@ def teacher_fwd(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0,
               (c0, (B, W)))
     if any(tuple(t.shape) != s for t, s in shapes):
         raise ValueError('teacher_fwd: inconsistent shapes')
+    mask_ptr = _mask_ptr('teacher_fwd', enc_mask, dev, B, T)
     # the product stage reads the rows of [W_a | R]^T
     WR_t = torch.cat([W_a, R], dim=1).t().contiguous()
     hs = torch.empty((Td, B, W), dtype=dt, device=dev)
@@ -240,19 +261,19 @@ def teacher_fwd(zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0,
     aa = torch.empty((Td, B, T), dtype=dt, device=dev)
     zs = torch.empty((Td, B, W4), dtype=dt, device=dev)
     # scratch: one step's wvec, h.R and masked contexts, and each row's
-    # window (its alignment values, then its start and size as int32)
+    # window centre for the next step
     wv = torch.empty((B, W), dtype=dt, device=dev)
     zr = torch.empty((B, W4), dtype=F32, device=dev)
     cg = torch.empty((4, B, A), dtype=dt, device=dev)
-    win = torch.empty((B * (2 * int(ww) + 3),), dtype=F32, device=dev)
+    win = torch.empty((B,), dtype=F32, device=dev)
     ins = (zx, u, att, Kc, WR_t, v, b_UW, b_v, bias, maskc, h0, c0)
     outs = (hs, cs, aa, zs)
     in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
     out_ptrs = (ctypes.c_void_p * (len(outs) + 4))(
         *(t.data_ptr() for t in outs + (wv, zr, cg, win)))
     err = _build.library().teacher_fwd_launch(
-        _DTYPE_CODES[dt], in_ptrs, out_ptrs, Td, B, T, W, A, int(ww),
-        _build.stream_of(zx))
+        _DTYPE_CODES[dt], in_ptrs, out_ptrs, mask_ptr, Td, B, T, W, A,
+        int(ww), _build.stream_of(zx))
     _build.check(err, 'teacher forward kernel (Td=%d B=%d T=%d W=%d A=%d '
                  'ww=%d)' % (Td, B, T, W, A, ww))
     teacher_fwd.launches += 1
@@ -263,14 +284,15 @@ teacher_fwd.launches = 0
 
 
 def teacher_bwd(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW,
-                maskc, ww):
+                maskc, ww, enc_mask=None):
     """K7: dz, ds, dctx, dwvec in the weight dtype and dh0, dc0, dva, du,
     datt in float32 (see `teacher_bwd_reference`). Every row of `aa`
-    must be 0 outside 2*ww + 1 consecutive positions, as K6 writes it."""
+    must be 0 outside 2*ww + 1 consecutive positions, as K6 writes it;
+    `enc_mask` is K6's."""
     tensors = (zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW,
                maskc)
     if _on_cpu(tensors):
-        return teacher_bwd_reference(*tensors, ww)
+        return teacher_bwd_reference(*tensors, ww, enc_mask)
     dt = R.dtype
     dev = _cuda_device('teacher_bwd', tensors)
     _check('teacher_bwd', tensors, dt, dev)
@@ -283,6 +305,7 @@ def teacher_bwd(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW,
               (b_UW, (1, W)), (maskc, (4, B, A)))
     if any(tuple(t.shape) != s for t, s in shapes):
         raise ValueError('teacher_bwd: inconsistent shapes')
+    mask_ptr = _mask_ptr('teacher_bwd', enc_mask, dev, B, T)
     # the wvec stage reads W_a^T's rows; the other products read Kc, R and
     # W_a as they are
     W_aT = W_a.t().contiguous()
@@ -305,8 +328,8 @@ def teacher_bwd(zs, g, hprev, cprev, cs, aa, u, att, Kc, R, W_a, v, b_UW,
     out_ptrs = (ctypes.c_void_p * (len(outs) + 2))(
         *(t.data_ptr() for t in outs + (wv, part)))
     err = _build.library().teacher_bwd_launch(
-        _DTYPE_CODES[dt], in_ptrs, out_ptrs, Td, B, T, W, A, int(ww),
-        _build.stream_of(zs))
+        _DTYPE_CODES[dt], in_ptrs, out_ptrs, mask_ptr, Td, B, T, W, A,
+        int(ww), _build.stream_of(zs))
     _build.check(err, 'teacher backward kernel (Td=%d B=%d T=%d W=%d A=%d '
                  'ww=%d)' % (Td, B, T, W, A, ww))
     teacher_bwd.launches += 1
@@ -346,14 +369,14 @@ def _zx_of(xs, mask_x, K_x, W, dt):
 
 
 class TeacherTopFused(torch.autograd.Function):
-    """(top leaves, xs, attended, u, h0, c0, masks, ww) -> hs (B, Td, W),
-    differentiable through K6 and K7 (their plain versions for CPU
-    tensors): gradients for every leaf of the top layer, xs, attended, u,
-    h0 and c0, none for masks."""
+    """(top leaves, xs, attended, u, h0, c0, masks, ww, enc_mask) -> hs
+    (B, Td, W), differentiable through K6 and K7 (their plain versions for
+    CPU tensors): gradients for every leaf of the top layer, xs, attended,
+    u, h0 and c0, none for masks and enc_mask (None or (B, T) uint8)."""
 
     @staticmethod
     def forward(ctx, W_a, v_a, b_UW, b_v, K, R, bias, xs, attended, u, h0,
-                c0, masks, ww):
+                c0, masks, ww, enc_mask):
         B, Td, W = xs.shape
         A = attended.shape[2]
         dt = R.dtype
@@ -363,16 +386,17 @@ class TeacherTopFused(torch.autograd.Function):
         hs, cs, aa, zs = teacher_fwd(
             zx, u.to(dt).contiguous(), attended.to(dt).contiguous(), K_ctx,
             R.contiguous(), W_a.to(dt).contiguous(), v_row, b_UW2, b_v2,
-            bias2, maskc, h0.to(dt).contiguous(), c0.to(dt).contiguous(), ww)
+            bias2, maskc, h0.to(dt).contiguous(), c0.to(dt).contiguous(), ww,
+            enc_mask)
         ctx.save_for_backward(W_a, v_a, b_UW, b_v, K, R, bias, xs, attended,
-                              u, h0, c0, masks, hs, cs, aa, zs)
+                              u, h0, c0, masks, enc_mask, hs, cs, aa, zs)
         ctx.ww = ww
         return hs.transpose(0, 1)
 
     @staticmethod
     def backward(ctx, g_out):
         (W_a, v_a, b_UW, b_v, K, R, bias, xs, attended, u, h0, c0, masks,
-         hs, cs, aa, zs) = ctx.saved_tensors
+         enc_mask, hs, cs, aa, zs) = ctx.saved_tensors
         B, Td, W = xs.shape
         T, A = attended.shape[1], attended.shape[2]
         dt = R.dtype
@@ -385,10 +409,11 @@ class TeacherTopFused(torch.autograd.Function):
         dz_t, ds_t, dctx_t, dwvec_t, dh0, dc0, dva, du, datt = teacher_bwd(
             zs, g_t, hprev, cprev, cs, aa, u.to(dt).contiguous(), att_d,
             K_ctx, R.contiguous(), W_a.to(dt).contiguous(), v_row, b_UW2,
-            maskc, ctx.ww)
+            maskc, ctx.ww, enc_mask)
         # ---- weight gradients: whole-sequence contractions, float32
         # ---- accumulation, each result rounded once to its leaf's dtype
-        # ---- (a product of weight-dtype tensors does exactly that)
+        # ---- (a product of weight-dtype tensors does exactly that); aa
+        # ---- is 0 at padded positions, so none needs the padding mask
         n = Td * B
         dz_b = dz_t.transpose(0, 1)                        # (B, Td, 4W)
         xs_d = xs.to(dt)
@@ -422,41 +447,45 @@ class TeacherTopFused(torch.autograd.Function):
                 db_UW.to(b_UW.dtype), db_v[None].to(b_v.dtype),
                 dK.to(K.dtype), dR.to(R.dtype), dbias.to(bias.dtype),
                 dxs.to(xs.dtype), datt.to(attended.dtype), du.to(u.dtype),
-                dh0.to(h0.dtype), dc0.to(c0.dtype), None, None)
+                dh0.to(h0.dtype), dc0.to(c0.dtype), None, None, None)
 
 
-def teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww):
+def teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww,
+                      enc_mask=None):
     """Fused teacher-forced top scan: hs (B, Td, W) from the top layer's
     parameters `top` (W_a, v_a, b_UW, b_v, cell{kernel, recurrent_kernel,
     bias}), the lower stack's activations xs (B, Td, W), attended
-    (B, T, A), u (B, T, W), h0/c0 (B, W) and `masks` (4, B, W+A)
-    variational dropout multipliers or None. A padding mask is
-    unsupported (callers keep such models on the other paths)."""
+    (B, T, A), u (B, T, W), h0/c0 (B, W), `masks` (4, B, W+A)
+    variational dropout multipliers or None, and `enc_mask` (B, T), true
+    at the encoder's valid positions, or None."""
     cell = top['cell']
+    if enc_mask is not None:
+        enc_mask = enc_mask.to(torch.uint8).contiguous()
     return TeacherTopFused.apply(
         top['W_a'], top['v_a'], top['b_UW'], top['b_v'], cell['kernel'],
         cell['recurrent_kernel'], cell['bias'], xs, attended, u, h0, c0,
-        masks, int(ww))
+        masks, int(ww), enc_mask)
 
 
 def teacher_top_fused_sharded(top, xs, attended, u, h0, c0, masks, ww,
-                              mesh):
+                              mesh, enc_mask=None):
     """`teacher_top_fused` per data shard of `mesh`, under the JAX
     package's name. The port's tensors already are the rank's rows and
     `top` the full top layer: `models.train.train_step` gathers the
     weights over 'model' and sums their gradients over 'data' once a
-    step, so the launch is `teacher_top_fused`'s."""
-    return teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww)
+    step, so the launch is `teacher_top_fused`'s, on the rank's rows of
+    `enc_mask`."""
+    return teacher_top_fused(top, xs, attended, u, h0, c0, masks, ww,
+                             enc_mask)
 
 
-def teacher_fused_supported(top, B, Td, T, W, A, has_enc_mask, ww=5,
-                            mesh=None):
+def teacher_fused_supported(top, B, Td, T, W, A, ww=5, mesh=None):
     """Whether `teacher_top_fused` launches the CUDA kernels for this
-    top layer: float32 or bfloat16 weights on a CUDA device, no padding
-    mask, a local window (ww >= 1), widths that are multiples of 8. Any
-    B, Td and T; the residual and gradient stacks and the sweeps' scratch
-    live in device memory. (CPU tensors run the plain versions, which
-    take any shape.)
+    top layer: float32 or bfloat16 weights on a CUDA device, a local
+    window (ww >= 1), widths that are multiples of 8, with or without a
+    padding mask. Any B, Td and T; the residual and gradient stacks and
+    the sweeps' scratch live in device memory. (CPU tensors run the plain
+    versions, which take any shape.)
 
     Under a `mesh` the kernels run per data shard
     (`teacher_top_fused_sharded`): `B` counts the rows of the call, which
@@ -467,7 +496,7 @@ def teacher_fused_supported(top, B, Td, T, W, A, has_enc_mask, ww=5,
         return False
     if mesh is not None and rk.device != mesh.device:
         return False
-    if has_enc_mask or ww < 1 or min(B, Td, T) < 1:
+    if ww < 1 or min(B, Td, T) < 1:
         return False
     with torch.cuda.device(rk.device):
         return bool(_build.library().teacher_scan_supported(W, A, int(ww)))

@@ -27,7 +27,7 @@ from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
 from cor_asv_ann_tpu_torch.ops.lstm import lstm_scan, lstm_step
 from cor_asv_ann_tpu_torch.ops.lstm_step_kernel import lstm_step_fused
 from cor_asv_ann_tpu_torch.utils.data import CharMapping, lines_to_index_batch
-from padding_masks import kernel_mask
+from padding_masks import kernel_mask, teacher_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -816,13 +816,169 @@ def test_teacher_bwd_kernel_repeats_its_bits(dev, dtype):
         assert torch.equal(a, b)
 
 
+# with the encoder's padding mask: the training cell's shape (d2/w128,
+# lines up to 96) and the kernel table's (d2/w512 at T = Td = 128)
+PADDED_TEACHER_SHAPES = [(256, 96, 96, 128, 128), (256, 128, 128, 512, 512)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,Td,T,W,A', PADDED_TEACHER_SHAPES)
+def test_teacher_kernels_with_padding_mask(dev, dtype, B, Td, T, W, A):
+    """Masked K6 against its plain version, then masked K7 on the
+    residuals the plain K6 saved: no alignment, ds, du or datt at a padded
+    position, and rows whose windows never hold a valid position (rows 1
+    and 3 of `teacher_mask`) keep a zero alignment."""
+    ww = 5
+    enc_mask = teacher_mask(B, T, 13, ww).to(dev)
+    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, True, seed=13)
+    got = tk.teacher_fwd(*ins, ww, enc_mask)
+    torch.cuda.synchronize()
+    want = tk.teacher_fwd_reference(*ins, ww, enc_mask)
+    _, share = tk.teacher_fwd_agreement(got, want, *TEACHER_TOL[dtype])
+    assert share >= (0.99 if dtype == torch.float32 else 0.9)
+    aa = got[2]
+    assert not bool(aa[:, enc_mask == 0].any())
+    assert not bool(aa[:, 1:4:2].any())
+    zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
+    hs, cs, aa, zs = want
+    g = (torch.from_numpy(np.random.default_rng(14)
+                          .normal(0, 0.1, hs.shape).astype(np.float32))
+         .to(dtype).to(dev))
+    args = (zs, g, _shift(hs, h0, False), _shift(cs, c0, False), cs, aa, u,
+            att, Kc, R, W_a, v, b_UW, maskc, ww, enc_mask)
+    got = tk.teacher_bwd(*args)
+    torch.cuda.synchronize()
+    _assert_teacher_bwd_close(got, tk.teacher_bwd_reference(*args), dtype)
+    ds, du, datt = got[1], got[7], got[8]
+    assert not bool(ds[:, enc_mask == 0].any())
+    assert not bool(du[enc_mask == 0].any())
+    assert not bool(datt[enc_mask == 0].any())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_teacher_kernels_all_valid_mask_is_no_mask(dev, dtype):
+    """A padding mask that holds every position gives the unmasked
+    kernels' bits."""
+    B, Td, T, W, A, ww = 70, 9, 24, 512, 512, 5
+    ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, True, seed=15)
+    ones = torch.ones((B, T), dtype=torch.uint8, device=dev)
+    plain = tk.teacher_fwd(*ins, ww)
+    for a, b in zip(plain, tk.teacher_fwd(*ins, ww, ones)):
+        assert torch.equal(a, b)
+    args, _ = _teacher_bwd_case(dev, dtype, B, Td, T, W, A, ww, True,
+                                seed=15)
+    for a, b in zip(tk.teacher_bwd(*args), tk.teacher_bwd(*args, ones)):
+        assert torch.equal(a, b)
+
+
+def _unmasked_teacher_digests(dev):
+    """sha256 (16 hex digits) of the unmasked K6 outputs and of K7's on
+    them, at fixed inputs, per dtype and shape (the training cell's
+    widths, and a ragged batch at the flagship's)."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Td, T, W, A in ((256, 33, 32, 128, 128),
+                               (70, 9, 24, 512, 512)):
+            ins = _teacher_inputs(dev, dtype, B, Td, T, W, A, True, seed=16)
+            fwd = tk.teacher_fwd(*ins, 5)
+            hs, cs, aa, zs = fwd
+            h0, c0 = ins[11], ins[12]
+            g = torch.full_like(hs, 0.01)
+            bwd = tk.teacher_bwd(zs, g, _shift(hs, h0, False),
+                                 _shift(cs, c0, False), cs, aa, *ins[1:6],
+                                 ins[6], ins[7], ins[10], 5)
+            out['%s_W%d' % (str(dtype)[6:], W)] = (_digest(fwd),
+                                                   _digest(bwd))
+    return out
+
+
+# the unmasked kernels' outputs before the padding mask came in, taken on
+# an H100 80GB HBM3 (the kernels before the mask and with it gave these)
+UNMASKED_TEACHER_DIGESTS = {
+    'float32_W128': ('6b1f30d752ff3214', 'fbbd824dd0bcfe82'),
+    'float32_W512': ('d36f6784b86ce7e9', 'cc7596e2f9f69a72'),
+    'bfloat16_W128': ('cf0943363acadf3d', '4bdd1361c4c8836b'),
+    'bfloat16_W512': ('56a44617866f3ea1', '596a49a745c7f955')}
+
+
+def test_unmasked_teacher_kernels_keep_their_bits(dev):
+    """Without a padding mask K6 and K7 give the bits they gave before the
+    mask was added, on the card the digests were taken on."""
+    name = torch.cuda.get_device_name(dev)
+    got = _unmasked_teacher_digests(dev)
+    print('unmasked teacher digests on %s: %r' % (name, got))
+    if name != 'NVIDIA H100 80GB HBM3':
+        pytest.skip('digests were taken on an NVIDIA H100 80GB HBM3')
+    assert got == UNMASKED_TEACHER_DIGESTS
+
+
+def test_masked_train_step_goes_through_the_teacher_kernels(dev):
+    """A mask_padding d2/w128 model: one K6 and one K7 launch a train_step
+    (the top layer with the encoder's padding mask), none with the
+    kernels off, and the same loss, gradients and parameter changes as
+    the dense body under autograd."""
+    from cor_asv_ann_tpu_torch.models import train as T
+    from cor_asv_ann_tpu_torch.models.params import tree_leaves, tree_map
+    rng = np.random.default_rng(17)
+    B, Tn, V = 48, 30, 20
+    lengths = rng.integers(3, Tn + 1, B)
+    idx = rng.integers(1, V, size=(B, Tn))
+    valid = np.arange(Tn)[None] < lengths[:, None]
+    enc = np.where(valid, idx, -1).astype(np.int32)
+    dec_in = np.concatenate([np.full((B, 1), -1, np.int32), enc], axis=1)
+    dec_out = np.concatenate([enc, np.full((B, 1), -1, np.int32)], axis=1)
+    weights = (dec_out >= 0).astype(np.float32)
+    config = Seq2SeqConfig(width=128, depth=2, voc_size=V, dropout=0.2,
+                           mask_padding=True)
+    init = init_params(config, seed=2)
+    got = {}
+    for mode in ('auto', 'off'):
+        seq2seq._TEACHER_KERNEL = mode
+        try:
+            params = tree_map(lambda t: t.requires_grad_(),
+                              params_from_numpy(init, dev))
+            first = [t.detach().clone() for t in tree_leaves(params)]
+            loss = T.loss_fn(params, config, *(torch.from_numpy(a).to(dev)
+                                               for a in (enc, dec_in,
+                                                         dec_out, weights)),
+                             torch.Generator().manual_seed(3))
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            opt = T.make_optimizer(params)
+            before = tk.teacher_fwd.launches, tk.teacher_bwd.launches
+            T.train_step(params, opt, config, enc, dec_in, dec_out, weights,
+                         torch.Generator().manual_seed(4))
+            torch.cuda.synchronize()
+            launched = (tk.teacher_fwd.launches - before[0],
+                        tk.teacher_bwd.launches - before[1])
+        finally:
+            seq2seq._TEACHER_KERNEL = 'auto'
+        change = [t.detach() - f for t, f in zip(tree_leaves(params), first)]
+        got[mode] = float(loss.detach()), grads, change, launched
+    on, off = got['auto'], got['off']
+    assert on[3] == (1, 1) and off[3] == (0, 0)
+    assert on[0] == pytest.approx(off[0], rel=1e-6)
+    # each gradient relative to its own scale, but at least 1e-4 of the
+    # largest: some leaves of a fresh model get almost none
+    top = max(r.abs().max().item() for r in off[1])
+    for g, r in zip(on[1], off[1]):
+        scale = max(r.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(g / scale, r / scale, rtol=2e-4,
+                                   atol=2e-5)
+    # Adam's first step is about lr * sign(gradient): compare the changes
+    # by their norm, again at least 1e-4 of the largest
+    top = max(float(r.norm()) for r in off[2])
+    for c, r in zip(on[2], off[2]):
+        assert float((c - r).norm()) <= 1e-3 * max(float(r.norm()),
+                                                   1e-4 * top)
+
+
 def test_teacher_kernels_at_the_widest_width(dev):
     """W = A = 1024, the widest width that K6 took before its stage
     kernels: K6 and K7 against their plain versions."""
     B, Td, T, W, A, ww = 5, 4, 12, 1024, 1024, 5
     ins = _teacher_inputs(dev, torch.bfloat16, B, Td, T, W, A, True, seed=6)
     top = {'cell': {'recurrent_kernel': ins[4]}}
-    assert tk.teacher_fused_supported(top, B, Td, T, W, A, False, ww)
+    assert tk.teacher_fused_supported(top, B, Td, T, W, A, ww)
     got = tk.teacher_fwd(*ins, ww)
     want = tk.teacher_fwd_reference(*ins, ww)
     tk.teacher_fwd_agreement(got, want, *TEACHER_TOL[torch.bfloat16])
@@ -831,11 +987,14 @@ def test_teacher_kernels_at_the_widest_width(dev):
     _assert_teacher_bwd_close(tk.teacher_bwd(*args), want, torch.bfloat16)
 
 
-@pytest.mark.parametrize('with_masks', [False, True])
-def test_teacher_autograd_matches_dense_body(dev, with_masks):
+@pytest.mark.parametrize('with_masks,padded', [
+    pytest.param(m, p, id='%s%s' % (m, '-padded' if p else ''))
+    for p in (False, True) for m in (False, True)])
+def test_teacher_autograd_matches_dense_body(dev, with_masks, padded):
     """TeacherTopFused (K6 + K7 + the outside contractions) against
-    autograd through the dense per-step body in float32."""
-    B, Td, T, W, A, ww = 9, 10, 20, 40, 24, 5
+    autograd through the dense per-step body in float32; padded, with
+    the encoder's padding mask and a decoder longer than the lines."""
+    B, Td, T, W, A, ww = 9, 24 if padded else 10, 20, 40, 24, 5
     rng = np.random.default_rng(3)
 
     def leaf(*shape, scale=0.18):
@@ -855,13 +1014,15 @@ def test_teacher_autograd_matches_dense_body(dev, with_masks):
              if with_masks else None)
     leaves = [top['W_a'], top['v_a'], top['b_UW'], top['b_v'],
               *top['cell'].values(), xs, att, u, h0, c0]
-    assert tk.teacher_fused_supported(top, B, Td, T, W, A, False, ww)
+    enc_mask = teacher_mask(B, T, 3, ww).to(dev) if padded else None
+    assert tk.teacher_fused_supported(top, B, Td, T, W, A, ww)
     before = tk.teacher_fwd.launches, tk.teacher_bwd.launches
-    out = tk.teacher_top_fused(top, xs, att, u, h0, c0, masks, ww)
+    out = tk.teacher_top_fused(top, xs, att, u, h0, c0, masks, ww, enc_mask)
     got = torch.autograd.grad((out ** 2).sum(), leaves)
     assert (tk.teacher_fwd.launches, tk.teacher_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
-    ref = seq2seq._teacher_body(top, xs, att, u, h0, c0, masks, ww, 0, None)
+    ref = seq2seq._teacher_body(top, xs, att, u, h0, c0, masks, ww, 0,
+                                None if enc_mask is None else enc_mask.bool())
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     want = torch.autograd.grad((ref ** 2).sum(), leaves)
     for g, w in zip(got, want):
@@ -893,15 +1054,20 @@ def test_teacher_kernel_refuses_what_it_cannot_take(dev):
     bad[11] = ins[11][:2].contiguous()
     with pytest.raises(ValueError):
         tk.teacher_fwd(*bad, 2)
-    # the gate: widths, window, padding mask
+    # a padding mask of another shape, dtype or device
+    for mask in (torch.ones((4, 3), dtype=torch.uint8, device=dev),
+                 torch.ones((3, 9), dtype=torch.bool, device=dev),
+                 torch.ones((3, 9), dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            tk.teacher_fwd(*ins, 2, mask)
+    # the gate: widths and window (a padding mask is no reason to refuse)
     top = {'cell': {'recurrent_kernel': ins[4]}}
-    assert tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, False, 2)
-    assert tk.teacher_fused_supported(top, 256, 128, 128, 512, 512, False)
-    assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, True, 2)
-    assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, False, 0)
-    assert not tk.teacher_fused_supported(top, 3, 4, 9, 12, 24, False, 2)
+    assert tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, 2)
+    assert tk.teacher_fused_supported(top, 256, 128, 128, 512, 512)
+    assert not tk.teacher_fused_supported(top, 3, 4, 9, 16, 24, 0)
+    assert not tk.teacher_fused_supported(top, 3, 4, 9, 12, 24, 2)
     # no width is kept in shared memory
-    assert tk.teacher_fused_supported(top, 3, 4, 9, 2048, 2048, False)
+    assert tk.teacher_fused_supported(top, 3, 4, 9, 2048, 2048)
     # a width that is no multiple of 8: the launcher reports it
     ins12 = _teacher_inputs(dev, torch.float32, 3, 4, 9, 12, 24, False)
     with pytest.raises(RuntimeError):
@@ -910,8 +1076,8 @@ def test_teacher_kernel_refuses_what_it_cannot_take(dev):
 
 @pytest.mark.parametrize('compute', [None, 'bfloat16'])
 def test_train_step_goes_through_the_teacher_kernels(dev, compute):
-    """One K6 and one K7 launch per train_step without a padding mask,
-    none with one, none with the kernels switched off."""
+    """One K6 and one K7 launch per train_step with or without a padding
+    mask, none with the kernels switched off."""
     from cor_asv_ann_tpu_torch.models import train as T
     from cor_asv_ann_tpu_torch.models.params import tree_map
     rng = np.random.default_rng(5)
@@ -922,8 +1088,8 @@ def test_train_step_goes_through_the_teacher_kernels(dev, compute):
     dec_out = np.concatenate([enc, np.zeros((B, 1, V), np.float32)], axis=1)
     weights = (dec_out.sum(-1) > 0).astype(np.float32)
     gen = torch.Generator().manual_seed(0)
-    for mask_padding, mode, want in ((False, 'auto', 1), (True, 'auto', 0),
-                                     (False, 'off', 0)):
+    for mask_padding, mode, want in ((False, 'auto', 1), (True, 'auto', 1),
+                                     (False, 'off', 0), (True, 'off', 0)):
         config = Seq2SeqConfig(width=64, depth=2, voc_size=V,
                                mask_padding=mask_padding)
         params = tree_map(lambda t: t.requires_grad_(),

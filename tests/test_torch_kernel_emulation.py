@@ -41,7 +41,7 @@ from cor_asv_ann_tpu_torch.ops import decode_loop_kernel as dlk
 from cor_asv_ann_tpu_torch.ops import decode_step_kernel as dsk
 from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
 from cor_asv_ann_tpu_torch.ops import teacher_kernel as tk
-from padding_masks import kernel_mask
+from padding_masks import kernel_mask, teacher_mask
 from torch_port_fixtures import single_threaded_cpu  # noqa: F401
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -256,7 +256,8 @@ def _teacher_inputs(dtype, B, Td, T, W, A, with_masks, seed):
     return [zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0]
 
 
-def _launch_teacher_fwd(lib, code, ins, outs, Td, B, T, W, A, ww):
+def _launch_teacher_fwd(lib, code, ins, outs, Td, B, T, W, A, ww,
+                        enc_mask=None):
     """K6's launcher on `ins` in `teacher_fwd`'s order, with [W_a | R]^T
     in place of R and W_a and its scratch poisoned with NaN."""
     zx, u, att, Kc, R, W_a, *rest = ins
@@ -266,11 +267,13 @@ def _launch_teacher_fwd(lib, code, ins, outs, Td, B, T, W, A, ww):
     scratch = [torch.full((B, W), float('nan')).to(dt),
                torch.full((B, 4 * W), float('nan')),
                torch.full((4, B, A), float('nan')).to(dt),
-               torch.full((B * (2 * ww + 3),), float('nan'))]
+               torch.full((B,), float('nan'))]
     in_ptrs = (ctypes.c_void_p * len(kins))(*_ptrs(kins))
     out_ptrs = (ctypes.c_void_p * (len(outs) + 4))(*_ptrs(outs + scratch))
-    return lib.teacher_fwd_launch(code, in_ptrs, out_ptrs, Td, B, T, W, A, ww,
-                                  None)
+    return lib.teacher_fwd_launch(
+        code, in_ptrs, out_ptrs,
+        None if enc_mask is None else enc_mask.data_ptr(), Td, B, T, W, A, ww,
+        None)
 
 
 # (B, Td, T, W, A, ww): ragged row blocks, T != Td, windows clipped at both
@@ -281,6 +284,11 @@ def _launch_teacher_fwd(lib, code, ins, outs, Td, B, T, W, A, ww):
 TEACHER_SHAPES = [(5, 7, 16, 16, 24, 5), (3, 6, 9, 40, 8, 2),
                   (2, 4, 30, 8, 16, 1), (19, 5, 12, 24, 40, 2),
                   (2, 3, 6, 8, 520, 1)]
+# with the encoder's padding mask (`teacher_mask`, rows of every kind) and
+# dropout masks: the first shape, and a decoder of 10 steps over lines of
+# at most 8 positions, so that every right-padded row runs past its
+# line's end (few cases: this file's run sets the suite's length)
+MASKED_TEACHER_SHAPES = [TEACHER_SHAPES[0], (4, 10, 8, 8, 16, 2)]
 
 
 @DTYPES
@@ -288,19 +296,39 @@ TEACHER_SHAPES = [(5, 7, 16, 16, 24, 5), (3, 6, 9, 40, 8, 2),
 @pytest.mark.parametrize('B,Td,T,W,A,ww', TEACHER_SHAPES)
 def test_emulated_teacher_kernels(lib, dtype, with_masks, B, Td, T, W, A, ww):
     """K6 against its plain version, then K7 on the plain K6's residuals."""
+    _emulated_teacher(lib, dtype, with_masks, B, Td, T, W, A, ww, False)
+
+
+@DTYPES
+@pytest.mark.parametrize('B,Td,T,W,A,ww', MASKED_TEACHER_SHAPES)
+def test_emulated_teacher_kernels_padded(lib, dtype, B, Td, T, W, A, ww):
+    """K6 and K7 with the encoder's padding mask: padded positions and
+    rows whose window never holds a valid position (zero alignment, the
+    window centre held at 1) against the plain versions."""
+    _emulated_teacher(lib, dtype, True, B, Td, T, W, A, ww, True)
+
+
+def _emulated_teacher(lib, dtype, with_masks, B, Td, T, W, A, ww, padded):
     ins = _teacher_inputs(dtype, B, Td, T, W, A, with_masks, seed=B)
     zx, u, att, Kc, R, W_a, v, b_UW, b_v, bias, maskc, h0, c0 = ins
-    want = tk.teacher_fwd_reference(*ins, ww)
+    enc_mask = teacher_mask(B, T, B + Td, ww) if padded else None
+    want = tk.teacher_fwd_reference(*ins, ww, enc_mask)
     got = [torch.full_like(w, float('nan')) for w in want]
-    err = _launch_teacher_fwd(lib, CODE[dtype], ins, got, Td, B, T, W, A, ww)
+    err = _launch_teacher_fwd(lib, CODE[dtype], ins, got, Td, B, T, W, A, ww,
+                              enc_mask)
     assert err == 0
     _assert_close(got, want, TOL[dtype], ('hs', 'cs', 'aa', 'zs'))
+    if padded:
+        # no alignment on a padded position; rows 1 and 3 (where there is
+        # one) never see a valid position
+        assert not bool(got[2][:, enc_mask == 0].any())
+        assert not bool(got[2][:, 1:4:2].any())
     hs, cs, aa, zs = want
     hprev = torch.cat([h0[None], hs[:-1]])
     cprev = torch.cat([c0[None], cs[:-1]])
     g = _mk(np.random.default_rng(9), hs.shape, 0.1, dtype)
     want = tk.teacher_bwd_reference(zs, g, hprev, cprev, cs, aa, u, att, Kc,
-                                    R, W_a, v, b_UW, maskc, ww)
+                                    R, W_a, v, b_UW, maskc, ww, enc_mask)
     got = [torch.full_like(w, float('nan')) for w in want[:7]] \
         + [torch.zeros_like(w) for w in want[7:]]
     scratch = [torch.full((Td, B, W), float('nan')).to(dtype),
@@ -309,12 +337,21 @@ def test_emulated_teacher_kernels(lib, dtype, with_masks, B, Td, T, W, A, ww):
             W_a.t().contiguous(), v, b_UW, maskc]
     in_ptrs = (ctypes.c_void_p * len(kins))(*_ptrs(kins))
     out_ptrs = (ctypes.c_void_p * (len(got) + 2))(*_ptrs(got + scratch))
-    err = lib.teacher_bwd_launch(CODE[dtype], in_ptrs, out_ptrs, Td, B, T,
-                                 W, A, ww, None)
+    err = lib.teacher_bwd_launch(
+        CODE[dtype], in_ptrs, out_ptrs,
+        None if enc_mask is None else enc_mask.data_ptr(), Td, B, T, W, A, ww,
+        None)
     assert err == 0
     _assert_close(got, want, TOL[dtype],
                   ('dz', 'ds', 'dctx', 'dwvec', 'dh0', 'dc0', 'dva', 'du',
                    'datt'), relative=True)
+    if padded:
+        # nothing reaches a padded position or a row without a valid one
+        ds, du, datt = got[1], got[7], got[8]
+        assert not bool(ds[:, enc_mask == 0].any())
+        assert not bool(du[enc_mask == 0].any())
+        assert not bool(datt[enc_mask == 0].any())
+        assert not bool(got[3][:, 1:4:2].any())         # dwvec
 
 
 def _step_inputs(dtype, udtype, N, V, W, A, WIN, seed):

@@ -4,8 +4,10 @@
 A tiny d2 model in float32, parameters from the JAX package's
 ``init_params``, dropout 0 wherever the two packages are compared (their
 random streams cannot agree). Each forced route runs in both packages:
-``_TEACHER_KERNEL = 'on'`` (JAX: the Pallas kernels in interpret mode;
-port: the plain versions of K6/K7 through ``TeacherTopFused``),
+``_TEACHER_KERNEL = 'on'`` (JAX: the Pallas kernels in interpret mode, or
+for a mask_padding model, whose padding mask they do not take, its dense
+body; port: the plain versions of K6/K7 through ``TeacherTopFused``, with
+the padding mask),
 ``_TEACHER_ATTENTION = 'windowed'`` with and without ``_TEACHER_VJP =
 'on'``, and the dense forward of the hand-written backward. Loss and
 every gradient leaf agree at rtol 1e-4 / atol 1e-5 (the bar of
@@ -32,6 +34,7 @@ from cor_asv_ann_tpu_torch.models import train as PT
 from cor_asv_ann_tpu_torch.models.params import (params_from_numpy,
                                                  tree_leaves, tree_map)
 from cor_asv_ann_tpu_torch.ops import teacher_kernel as TK
+from cor_asv_ann_tpu_torch.utils import profiling
 from torch_port_fixtures import single_threaded_cpu  # noqa: F401
 
 FLAGS = ('_TEACHER_KERNEL', '_TEACHER_ATTENTION', '_TEACHER_VJP')
@@ -91,12 +94,17 @@ def _assert_close(got, want, **tol):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **tol)
 
 
-@pytest.mark.parametrize('lm_loss', [False, True], ids=['plain', 'lm'])
-def test_loss_and_gradients_match_with_kernel_on(flags, lm_loss):
+@pytest.mark.parametrize('lm_loss,mask_padding', [
+    pytest.param(lm, mp, id=('lm' if lm else 'plain')
+                 + ('-mask_padding' if mp else ''))
+    for mp in (False, True) for lm in (False, True)])
+def test_loss_and_gradients_match_with_kernel_on(flags, lm_loss,
+                                                 mask_padding):
     """forward_teacher(train=True) through the fused teacher layer in
-    both packages."""
+    both packages (mask_padding: the port's with the padding mask, the
+    JAX package's dense body)."""
     flags(teacher_kernel='on')
-    config, params, batch = _setup()
+    config, params, batch = _setup(mask_padding)
     calls = TK.teacher_fwd.launches, TK.teacher_bwd.launches
     loss, grads, want_loss, want_grads = _loss_and_grads_both(
         config, params, batch, lm_loss)
@@ -155,8 +163,9 @@ def _forward(config, params, batch, train, rng=None):
 
 
 def test_kernel_dispatch_engages_for_training_only(flags, monkeypatch):
-    """_TEACHER_KERNEL='on' routes training through the fused layer; eval,
-    'off', padding masks and global attention stay on the other routes."""
+    """_TEACHER_KERNEL='on' routes training through the fused layer, with
+    or without a padding mask; eval, 'off' and global attention stay on
+    the other routes."""
     config, params, batch = _setup(B=2, T=6)
     calls = _spy(monkeypatch, 'teacher_top_fused')
     flags(teacher_kernel='on')
@@ -171,16 +180,59 @@ def test_kernel_dispatch_engages_for_training_only(flags, monkeypatch):
                                atol=1e-5)
     flags(teacher_kernel='on')
     masked, mparams, mbatch = _setup(mask_padding=True, B=2, T=6)
-    _forward(masked, mparams, mbatch, train=True)
+    pm_kernel = _forward(masked, mparams, mbatch, train=True)
+    assert len(calls) == 2
+    flags(teacher_kernel='off')
+    pm_ref = _forward(masked, mparams, mbatch, train=True)
+    assert len(calls) == 2
+    np.testing.assert_allclose(pm_kernel.numpy(), pm_ref.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    flags(teacher_kernel='on')
     _forward(dataclasses.replace(config, window_width=0), params, batch,
              train=True)
     flags(teacher_kernel='on', teacher_attention='dense')
     _forward(config, params, batch, train=True)
-    assert len(calls) == 1
+    assert len(calls) == 2
     # 'auto' on CPU tensors: the gate speaks of the CUDA kernels only
     flags()
     _forward(config, params, batch, train=True)
-    assert len(calls) == 1
+    _forward(masked, mparams, mbatch, train=True)
+    assert len(calls) == 2
+
+
+def test_kernel_dispatch_passes_the_padding_mask(flags, monkeypatch):
+    """A mask_padding model hands the fused layer the encoder's mask, true
+    at the valid positions; a keras_padding model hands it none."""
+    calls = _spy(monkeypatch, 'teacher_top_fused')
+    flags(teacher_kernel='on')
+    for mask_padding in (False, True):
+        config, params, batch = _setup(mask_padding, B=3, T=8)
+        _forward(config, params, batch, train=True)
+    unmasked, masked = calls
+    assert unmasked[8] is None
+    want = batch[0].any(axis=2)
+    assert not want.all()
+    np.testing.assert_array_equal(masked[8].numpy(), want)
+
+
+def test_teacher_counters_count_the_fused_route(flags, tmp_path):
+    """training.teacher_calls counts the training forwards' top layers,
+    training.teacher_kernel_calls those on the fused layer; eval counts
+    neither."""
+    config, params, batch = _setup(mask_padding=True, B=2, T=6)
+    got = {}
+    for mode in ('on', 'off'):
+        flags(teacher_kernel=mode)
+        with profiling.maybe_profile(
+                profile_file=str(tmp_path / ('%s.prof' % mode))):
+            _forward(config, params, batch, train=False)
+            for _ in range(3):
+                _forward(config, params, batch, train=True)
+            got[mode] = profiling.snapshot()['counters']
+    assert got['on']['training.teacher_calls'] == 3
+    assert got['on']['training.teacher_kernel_calls'] == 3
+    assert got['off']['training.teacher_calls'] == 3
+    assert 'training.teacher_kernel_calls' not in got['off']
 
 
 def test_kernel_dispatch_passes_dropout_masks(flags, monkeypatch):

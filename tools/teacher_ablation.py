@@ -129,8 +129,9 @@ K7_VARIANTS = {
          'dw += dd[q];'),
         (K7, 'for (int q = 0; q < JB; ++q) x[q] = p0[(size_t)min(j0 + q, cnt - '
          '1) * A];', 'for (int q = 0; q < JB; ++q) x[q] = 0.0f;'),
-        (K7, 'if (j0 + q < cnt) p0[(size_t)(j0 + q) * A] = x[q] + aw_s[j0 + q] '
-         '* d;', 'if (j0 + q < cnt && x[q] != 0.0f) p0[0] = d;')],
+        (K7, 'if (j0 + q < cnt && ok_s[j0 + q]) p0[(size_t)(j0 + q) * A] = '
+         'x[q] + aw_s[j0 + q] * d;',
+         'if (j0 + q < cnt && x[q] != 0.0f) p0[0] = d;')],
     'no_cell_backward': [(
         K7, 'a.dc0[(size_t)row * W + n] = cell_bwd<T>(a, t - 1, row, n, x[e], '
         'dh[e], dc[e]);', 'a.dc0[(size_t)row * W + n] = dh[e] + dc[e];')],
@@ -239,7 +240,7 @@ def inputs(torch, dt, B, Td, T, W, A, ww):
         torch.empty((B, W), dtype=dt, device=dev),
         torch.empty((B, 4 * W), device=dev),
         torch.empty((4, B, A), dtype=dt, device=dev),
-        torch.empty((B * (2 * ww + 3),), device=dev)]
+        torch.empty((B,), device=dev)]
     g = torch.full_like(hs, 1e-3)
     bwd_ins = [zs, g, torch.cat([h0[None], hs[:-1]]),
                torch.cat([c0[None], cs[:-1]]), cs, aa, u, att, Kc, R, W_a,
@@ -319,7 +320,8 @@ def main():
             ip, op = ptrs[k]
 
             def run():
-                err = launcher(code[dt], ip, op, Td, B, T, W, A, ww, stream)
+                err = launcher(code[dt], ip, op, None, Td, B, T, W, A, ww,
+                               stream)
                 assert err == 0, err
             key = str(dt).split('.')[-1]
             row[key + '_ms'] = ms(run)
