@@ -1,28 +1,37 @@
 // Stand-in for <cuda_runtime.h> that lets a host C++20 compiler build the
 // port's kernels (csrc/lstm_step.cu, csrc/lstm_scan.cu, csrc/teacher_scan.cu,
 // csrc/teacher_bwd.cu, csrc/decode_step.cu, csrc/decode_loop.cu) and run them
-// on the CPU: one OS thread per CUDA thread,
-// __syncthreads (and __syncthreads_or) as a barrier over the block, warp shuffles, __syncwarp, the
-// bf16 tensor-core instruction and ldmatrix through per-warp exchange buffers. The blocks of a
-// `<<<...>>>` launch run one after another; the blocks of a cooperative launch
-// (cudaLaunchCooperativeKernel) all at once, on a card of EMU_SM_COUNT SMs
-// that holds one block per SM, so that blocks can wait on each other through
-// a counter in global memory (release adds, acquire loads, and loads that
-// bypass L1 of what the other blocks wrote). It knows only the constructs
-// those sources use. The launch syntax `kernel<<<grid, threads, smem,
-// stream>>>(args)` and the `extern __shared__` declaration are rewritten by
-// tests/test_torch_kernel_emulation.py (to emu::launch and emu::smem) before
-// compiling.
+// on the CPU. A launch runs on the OS thread that makes it, each CUDA thread
+// a fiber (<ucontext.h>) on a pooled stack above a guard page (emu.cpp); a
+// fiber runs until it reaches a barrier or spins on a counter, then yields to
+// the launch's scheduler. One fiber barrier stands in for __syncthreads (and
+// __syncthreads_or) over the block and for __syncwarp, the warp shuffles, and
+// the bf16 tensor-core instruction and ldmatrix, which exchange through
+// per-warp buffers. The scheduler resumes a block's threads in ascending
+// order in one phase of its block barrier and in descending order in the
+// next, so that a read of another thread's write that lacks its barrier
+// finds the poisoned shared memory or scratch in one of the two orders on
+// every run. A round of the scheduler in which no fiber starts, arrives at
+// or passes a barrier, adds to a counter or returns is a deadlock: the
+// launch stops, names the waiting threads on stderr, and fails with
+// cudaErrorLaunchTimeout (the return of cudaLaunchCooperativeKernel, or of
+// the next cudaGetLastError() after a `<<<...>>>` launch). The blocks of a
+// `<<<...>>>` launch run one after another; the blocks of a cooperative
+// launch (cudaLaunchCooperativeKernel) all at once, on a card of
+// EMU_SM_COUNT SMs that holds one block per SM, so that blocks can wait on
+// each other through a counter in global memory (release adds, acquire
+// loads, and loads that bypass L1 of what the other blocks wrote). It knows
+// only the constructs those sources use. The launch syntax `kernel<<<grid,
+// threads, smem, stream>>>(args)` and the `extern __shared__` declaration
+// are rewritten by tests/test_torch_kernel_emulation.py (to emu::launch and
+// emu::smem) before compiling.
 #pragma once
 
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
-#include <memory>
-#include <thread>
 #include <tuple>
 #include <utility>
 #include <vector>
@@ -44,7 +53,12 @@ struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorCooperativeLaunchTooLarge = 720 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchTimeout = 702,  // a deadlocked launch
+  cudaErrorCooperativeLaunchTooLarge = 720
+};
 typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr {
@@ -53,13 +67,16 @@ enum cudaDeviceAttr {
 };
 constexpr int EMU_MAX_SMEM = 232448;  // what a Hopper block can opt in to
 // few SMs, so that the tests' grids have several row groups and unit slices
-// with few OS threads
+// with few fibers
 constexpr int EMU_SM_COUNT = 6;
 
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes <= EMU_MAX_SMEM ? cudaSuccess : cudaErrorInvalidValue;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+namespace emu {
+extern thread_local cudaError_t last_error;  // of a `<<<...>>>` launch
+}
+inline cudaError_t cudaGetLastError() { return std::exchange(emu::last_error, cudaSuccess); }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
@@ -81,13 +98,18 @@ inline void cp_async16_standin(void* dst, const void* src, bool valid) {
     std::memset(dst, 0, 16);
 }
 
+namespace emu {
+void released();  // a counter moved: the launch makes progress
+void spin();      // yields the fiber that spins to the scheduler
+}
 // the release add and acquire load (red.release.gpu / ld.acquire.gpu) of a
 // counter in global memory shared between blocks
 inline void red_release_add_standin(int* p, int v) {
   std::atomic_ref<int>(*p).fetch_add(v, std::memory_order_release);
+  emu::released();
 }
 inline int ld_acquire_standin(const int* p) {
-  std::this_thread::yield();  // a spinning block leaves the cores to the others
+  emu::spin();  // a spinning block lets the others run
   return std::atomic_ref<int>(*const_cast<int*>(p)).load(std::memory_order_acquire);
 }
 
@@ -100,50 +122,43 @@ template <class V> V ld_cg_standin(const V* p) {
 
 namespace emu {
 
+// a barrier over `count` fibers: arrive, then yield until `gen` moves on
+struct Barrier {
+  int count = 0, arrived = 0;
+  unsigned gen = 0;
+  void arrive_and_wait();
+};
+
 struct Block {
-  std::unique_ptr<std::barrier<>> bar;                 // __syncthreads
-  std::vector<std::unique_ptr<std::barrier<>>> wbar;   // one per warp
-  std::vector<uint32_t> xch;                           // shuffle exchange, one word per thread
-  std::vector<uint32_t> mma;                           // mma fragments, 6 words per thread
-  std::vector<const void*> rows;                       // ldmatrix row addresses, one per thread
-  std::vector<float4> smem;                            // dynamic shared memory
-  std::atomic<int> vote{0};                            // __syncthreads_or
+  Barrier bar;                      // __syncthreads
+  std::vector<Barrier> wbar;        // one per warp
+  std::vector<uint32_t> xch;        // shuffle exchange, one word per thread
+  std::vector<uint32_t> mma;        // mma fragments, 6 words per thread
+  std::vector<const void*> rows;    // ldmatrix row addresses, one per thread
+  std::vector<float4> smem;         // dynamic shared memory
+  int vote = 0;                     // __syncthreads_or
 };
 extern thread_local Block* cur;
 
 inline float4* smem() { return cur->smem.data(); }
 
-inline std::unique_ptr<Block> new_block(int nt, size_t smem_bytes) {
-  auto blk = std::make_unique<Block>();
-  blk->bar = std::make_unique<std::barrier<>>(nt);
-  for (int w = 0; w < nt / 32; ++w) blk->wbar.push_back(std::make_unique<std::barrier<>>(32));
-  blk->xch.assign(nt, 0);
-  blk->mma.assign((size_t)nt * 6, 0);
-  blk->rows.assign(nt, nullptr);
-  // poisoned, so that a read of scratch that was never written shows
-  blk->smem.assign(smem_bytes / sizeof(float4) + 1, float4{NAN, NAN, NAN, NAN});
-  return blk;
-}
+// blocks [b0, b1) of a grid, all at once, each of nt fibers that call
+// body(arg); cudaErrorLaunchTimeout where they deadlock
+cudaError_t run_blocks(int b0, int b1, int nt, size_t smem_bytes, void (*body)(void*), void* arg);
 
-// blocks [b0, b1) of a grid, all at once; body() runs the kernel
-template <class Body> void run_blocks(int b0, int b1, int nt, size_t smem_bytes, Body body) {
-  std::vector<std::unique_ptr<Block>> blocks;
-  for (int b = b0; b < b1; ++b) blocks.push_back(new_block(nt, smem_bytes));
-  std::vector<std::thread> threads;
-  for (int b = b0; b < b1; ++b)
-    for (int t = 0; t < nt; ++t)
-      threads.emplace_back([&, b, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        cur = blocks[b - b0].get();
-        body();
-      });
-  for (auto& t : threads) t.join();
+template <class Body> cudaError_t run_blocks(int b0, int b1, int nt, size_t smem_bytes, Body body) {
+  return run_blocks(b0, b1, nt, smem_bytes, [](void* f) { (*static_cast<Body*>(f))(); }, &body);
 }
 
 template <class K, class... A>
 void launch(int grid, int nt, size_t smem_bytes, K kernel, A... args) {
-  for (int b = 0; b < grid; ++b) run_blocks(b, b + 1, nt, smem_bytes, [&] { kernel(args...); });
+  for (int b = 0; b < grid; ++b) {
+    const cudaError_t err = run_blocks(b, b + 1, nt, smem_bytes, [&] { kernel(args...); });
+    if (err != cudaSuccess) {
+      last_error = err;
+      return;
+    }
+  }
 }
 
 }  // namespace emu
@@ -156,26 +171,25 @@ cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(A...), int grid, int nt, 
   auto call = [&]<size_t... I>(std::index_sequence<I...>) {
     kernel(*static_cast<std::remove_reference_t<A>*>(args[I])...);
   };
-  emu::run_blocks(0, grid, nt, smem_bytes, [&] { call(std::index_sequence_for<A...>{}); });
-  return cudaSuccess;
+  return emu::run_blocks(0, grid, nt, smem_bytes, [&] { call(std::index_sequence_for<A...>{}); });
 }
 
-inline void __syncthreads() { emu::cur->bar->arrive_and_wait(); }
+inline void __syncthreads() { emu::cur->bar.arrive_and_wait(); }
 
 // bar.red.or: a barrier over the block that returns non-zero where any
 // thread's predicate is
 inline int __syncthreads_or(int pred) {
   emu::Block* b = emu::cur;
-  b->bar->arrive_and_wait();  // every thread has read the last vote
-  if (threadIdx.x == 0) b->vote.store(0);
-  b->bar->arrive_and_wait();
-  if (pred) b->vote.fetch_or(1);
-  b->bar->arrive_and_wait();
-  return b->vote.load();
+  b->bar.arrive_and_wait();  // every thread has read the last vote
+  if (threadIdx.x == 0) b->vote = 0;
+  b->bar.arrive_and_wait();
+  if (pred) b->vote = 1;
+  b->bar.arrive_and_wait();
+  return b->vote;
 }
 
 // every lane of the warp must call it, as the kernels do
-inline void __syncwarp(unsigned = 0xffffffffu) { emu::cur->wbar[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::cur->wbar[threadIdx.x / 32].arrive_and_wait(); }
 
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
@@ -185,10 +199,10 @@ template <class V> V __shfl_xor_sync(unsigned, V v, int lane_mask) {
   emu::Block* b = emu::cur;
   const int t = threadIdx.x, w = t / 32;
   std::memcpy(&b->xch[t], &v, 4);
-  b->wbar[w]->arrive_and_wait();
+  b->wbar[w].arrive_and_wait();
   V r;
   std::memcpy(&r, &b->xch[t ^ lane_mask], 4);
-  b->wbar[w]->arrive_and_wait();
+  b->wbar[w].arrive_and_wait();
   return r;
 }
 
@@ -211,7 +225,7 @@ inline void mma_bf16_m16n8k16_standin(float (&d)[4], const uint32_t (&a)[4], con
   for (int i = 0; i < 4; ++i) mine[i] = a[i];
   mine[4] = b[0];
   mine[5] = b[1];
-  blk->wbar[w]->arrive_and_wait();
+  blk->wbar[w].arrive_and_wait();
   auto A = [&](int r, int k) {
     const int l = (r % 8) * 4 + (k % 8) / 2, reg = (r >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0);
     return emu_bf16_half(blk->mma[(size_t)(base + l) * 6 + reg], k % 2);
@@ -228,7 +242,7 @@ inline void mma_bf16_m16n8k16_standin(float (&d)[4], const uint32_t (&a)[4], con
     for (int k = 0; k < 16; ++k) s = std::fma(A(r, k), B(k, c), s);
     out[e] = s;
   }
-  blk->wbar[w]->arrive_and_wait();
+  blk->wbar[w].arrive_and_wait();
   for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
 
@@ -241,7 +255,7 @@ inline void ldmatrix_x2_trans_standin(uint32_t (&r)[2], const void* row) {
   emu::Block* blk = emu::cur;
   const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
   blk->rows[t] = row;
-  blk->wbar[w]->arrive_and_wait();
+  blk->wbar[w].arrive_and_wait();
   const int g = lane / 4, q = lane % 4;
   uint32_t out[2];
   for (int i = 0; i < 2; ++i) {
@@ -250,7 +264,7 @@ inline void ldmatrix_x2_trans_standin(uint32_t (&r)[2], const void* row) {
     std::memcpy(&hi, static_cast<const uint16_t*>(blk->rows[base + 8 * i + 2 * q + 1]) + g, 2);
     out[i] = (uint32_t)lo | ((uint32_t)hi << 16);
   }
-  blk->wbar[w]->arrive_and_wait();
+  blk->wbar[w].arrive_and_wait();
   r[0] = out[0];
   r[1] = out[1];
 }
@@ -264,7 +278,7 @@ inline void ldmatrix_x4_standin(uint32_t (&r)[4], const void* row, bool trans) {
   emu::Block* blk = emu::cur;
   const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
   blk->rows[t] = row;
-  blk->wbar[w]->arrive_and_wait();
+  blk->wbar[w].arrive_and_wait();
   const int g = lane / 4, q = lane % 4;
   uint32_t out[4];
   for (int m = 0; m < 4; ++m) {
@@ -280,6 +294,6 @@ inline void ldmatrix_x4_standin(uint32_t (&r)[4], const void* row, bool trans) {
     }
     out[m] = (uint32_t)lo | ((uint32_t)hi << 16);
   }
-  blk->wbar[w]->arrive_and_wait();
+  blk->wbar[w].arrive_and_wait();
   for (int m = 0; m < 4; ++m) r[m] = out[m];
 }

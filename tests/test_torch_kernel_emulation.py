@@ -10,14 +10,21 @@ blocks of threads, a block barrier, warp shuffles, dynamic shared memory,
 bf16 conversions, ``mma.sync``, ``ldmatrix``, ``cp.async``, counters in
 global memory that the blocks of a cooperative grid meet at.
 ``tests/cuda_emulation/`` holds stand-ins for ``cuda_runtime.h`` and
-``cuda_bf16.h`` that give a host compiler exactly those (one OS thread
-per CUDA thread, blocks one after another). With the launch syntax
+``cuda_bf16.h`` that give a host compiler exactly those: a launch runs on
+the calling OS thread, each CUDA thread a fiber that yields at every
+barrier, a block's threads resumed in ascending order in one phase of its
+barrier and in descending order in the next (so that a read that lacks
+its barrier finds poisoned memory on every run), a launch whose fibers
+all wait failing with an error in place of hanging; the blocks of a
+``<<<...>>>`` launch one after another. With the launch syntax
 rewritten, ``g++ -std=c++20`` builds the very sources the GPU build
 compiles, and the exported launchers run on CPU tensors against the
 kernels' plain versions: indexing, shared-memory layout, barriers,
 window logic and rounding points are checked here; what ``nvcc`` makes of
 the sources, and their speed, only on a card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py). ``tests/cuda_emulation/planted_faults.cu`` holds the
+emulation's own planted faults: a missing barrier, a skipped one, a
+counter that no block adds to.
 
 Tolerances: float32 2e-5 (summation order, libm against PyTorch's
 exp/tanh); bfloat16 3e-2 (an ulp of a gate carried along the sweep;
@@ -31,6 +38,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -59,44 +67,62 @@ DTYPES = pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
 
 
 def _compile(gxx, args, cwd):
-    return subprocess.run([gxx, '-std=c++20', '-pthread', *args], cwd=cwd,
+    return subprocess.run([gxx, '-std=c++20', *args], cwd=cwd,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
 
 
 @pytest.fixture(scope='module')
-def lib(tmp_path_factory):
-    """The scan kernels' launchers, built for the CPU."""
+def toolchain(tmp_path_factory):
+    """A C++20 g++ that has what the stand-ins need, and a directory to
+    build in."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
     tmp = tmp_path_factory.mktemp('cuda_emulation')
     probe = tmp / 'probe.cpp'
-    probe.write_text('#include <barrier>\nint main() { std::barrier<> b(1); '
-                     'b.arrive_and_wait(); return 0; }\n')
+    probe.write_text('#include <atomic>\n#include <ucontext.h>\n'
+                     'int main() { int n = 0; ucontext_t c; '
+                     'std::atomic_ref<int>(n).fetch_add(1); '
+                     'return getcontext(&c) + n - 1; }\n')
     if _compile(gxx, [str(probe), '-o', str(tmp / 'probe')],
                 tmp).returncode != 0:
-        pytest.skip('needs a g++ with C++20 <barrier>')
+        pytest.skip('needs a g++ with C++20 std::atomic_ref and <ucontext.h>')
+    return gxx, tmp
+
+
+def _build_library(toolchain, sources, name):
+    """Rewrites the launches of `sources` (path -> expected counts, as in
+    SOURCES) and builds them with the stand-ins into one library."""
+    gxx, tmp = toolchain
     rewritten = []
-    for name, counts in SOURCES.items():
-        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+    for path, counts in sources.items():
+        with open(path) as f:
             src = f.read()
         src, n_launch = re.subn(
             r'(\w+<[\w, ]+>)<<<(.*?), (\w+), (\w+), (\w+)>>>\(',
             r'emu::launch(\2, \3, \4, \1, ', src)
         src, n_smem = re.subn(r'extern __shared__ float4 smem4\[\];',
                               'float4* smem4 = emu::smem();', src)
-        assert (n_launch, n_smem) == counts, (name, n_launch, n_smem)
-        path = tmp / name.replace('.cu', '.cpp')
-        path.write_text(src)
-        rewritten.append(str(path))
-    out = tmp / 'libemulated.so'
+        assert (n_launch, n_smem) == counts, (path, n_launch, n_smem)
+        out = tmp / os.path.basename(path).replace('.cu', '.cpp')
+        out.write_text(src)
+        rewritten.append(str(out))
+    out = tmp / name
     built = _compile(gxx, ['-O1', '-fPIC', '-shared', '-Wno-unknown-pragmas',
                            '-I' + HERE, '-I' + _build.CSRC_DIR,
                            os.path.join(HERE, 'emu.cpp'), *rewritten,
                            '-o', str(out)], tmp)
     assert built.returncode == 0, built.stdout
-    library = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope='module')
+def lib(toolchain):
+    """The kernels' launchers, built for the CPU."""
+    library = _build_library(
+        toolchain, {os.path.join(_build.CSRC_DIR, name): counts
+              for name, counts in SOURCES.items()}, 'libemulated.so')
     for name, (restype, argtypes) in _build.SIGNATURES.items():
         if name.startswith(('lstm_scan', 'lstm_step', 'teacher',
                             'decode_step', 'decode_loop', 'cor_kernels')):
@@ -147,7 +173,7 @@ def test_emulated_lstm_scan(lib, dtype, reverse, T, B, N, br, us):
 
 
 # every shape in float32, the two small ones in bfloat16 (N = 520 in
-# bfloat16 takes ~40 s a case here)
+# bfloat16 takes ~6 s a case here, more than the other masked cases together)
 MASKED_SCAN_CASES = [(dt,) + shape for shape in SCAN_SHAPES
                      for dt in (torch.float32, torch.bfloat16)
                      if dt == torch.float32 or shape[2] <= 256]
@@ -287,7 +313,7 @@ TEACHER_SHAPES = [(5, 7, 16, 16, 24, 5), (3, 6, 9, 40, 8, 2),
 # with the encoder's padding mask (`teacher_mask`, rows of every kind) and
 # dropout masks: the first shape, and a decoder of 10 steps over lines of
 # at most 8 positions, so that every right-padded row runs past its
-# line's end (few cases: this file's run sets the suite's length)
+# line's end
 MASKED_TEACHER_SHAPES = [TEACHER_SHAPES[0], (4, 10, 8, 8, 16, 2)]
 
 
@@ -635,3 +661,71 @@ def test_emulated_decode_loop_plans(lib):
     assert plan(40, 24, 13, 0) is None               # no window
     assert plan(40, 24, 13, 2, units_per_block=8) is None  # 5 + 2 blocks
     assert plan(40, 24, 13, 2, lines=17) is None
+
+
+@pytest.fixture(scope='module')
+def planted(toolchain):
+    """tests/cuda_emulation/planted_faults.cu's launchers."""
+    library = _build_library(
+        toolchain, {os.path.join(HERE, 'planted_faults.cu'): (3, 1)},
+        'libplanted.so')
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    library.planted_neighbour_read.argtypes = [ptr, ptr, i, i, i, i]
+    library.planted_skipped_barrier.argtypes = [ptr, i, i, i]
+    library.planted_unreached_counter.argtypes = [ptr, i]
+    return library
+
+
+# (barriers before the write, offset of the slot read): the next thread's
+# slot in the first phase, which runs in ascending order, and the previous
+# thread's in the second, which runs in descending order
+@pytest.mark.parametrize('phase,offset', [(0, 1), (1, -1)],
+                         ids=['ahead', 'behind'])
+def test_emulation_missing_barrier_reads_poison(planted, phase, offset):
+    """A read of a neighbour's shared-memory write equals the neighbour's
+    value after __syncthreads; without that barrier it finds the poisoned
+    shared memory, on every run, as the scheduler's order puts the reader
+    before the writer."""
+    n = 96
+    x = torch.arange(1, n + 1, dtype=torch.float32)
+    want = torch.zeros(n)
+    lo, hi = max(0, -offset), min(n, n - offset)
+    want[lo:hi] = x[lo + offset:hi + offset]
+    for _ in range(3):
+        for sync in (1, 0):
+            y = torch.full((n,), -1.0)
+            assert planted.planted_neighbour_read(
+                x.data_ptr(), y.data_ptr(), n, phase, offset, sync) == 0
+            if sync:
+                assert torch.equal(y, want)
+            else:
+                assert int(torch.isnan(y).sum()) == n - 1
+
+
+@pytest.mark.parametrize('fault', ['launch', 'cooperative', 'counter'])
+def test_emulation_deadlock_is_an_error(planted, capfd, fault):
+    """A thread that passes a barrier by (one after another in a
+    `<<<...>>>` launch, or in a cooperative grid), or a counter that no
+    block adds to: the launch stops with cudaErrorLaunchTimeout within
+    seconds and names a waiting thread, in place of hanging."""
+    grid = 3
+    start = time.monotonic()
+    if fault == 'counter':
+        counter = torch.zeros(grid, dtype=torch.int32)
+        err = planted.planted_unreached_counter(counter.data_ptr(), grid)
+        assert counter.tolist() == [1] * (grid - 1) + [0]
+    else:
+        y = torch.zeros(grid * 64)
+        err = planted.planted_skipped_barrier(
+            y.data_ptr(), grid, 5, int(fault == 'cooperative'))
+    assert time.monotonic() - start < 10
+    assert err == 702     # cudaErrorLaunchTimeout
+    waits = ('spins on a counter' if fault == 'counter'
+             else 'waits at __syncthreads')
+    block = grid - 1 if fault == 'counter' else 0
+    assert 'block %d: thread 0 %s' % (block, waits) in capfd.readouterr().err
+    # the error was read: the next launch starts clean
+    y = torch.full((4,), -1.0)
+    assert planted.planted_neighbour_read(
+        torch.ones(4).data_ptr(), y.data_ptr(), 4, 0, 0, 1) == 0
+    assert torch.equal(y, torch.ones(4))
