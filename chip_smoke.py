@@ -257,6 +257,64 @@ def main_path(torch, dev, goldens, corpus):
     print('bf16 flagship, 16 lines: served')
 
 
+def serving_scan(torch, dev, lines):
+    """The flagship's serving encoder (``encode(train=False)``) on K4
+    against the same encoder with ``_FUSED_SCAN = 'off'`` (the
+    step-by-step ``lstm_scan``), f32 and bf16, over `lines`: three K4
+    launches a call on the route (f32 under 'auto'; bf16, which serves
+    on ``lstm_scan`` under 'auto', forced 'on'), none off; f32 within the
+    scan kernels' f32 bar; the largest difference printed for each
+    dtype."""
+    from cor_asv_ann_tpu_torch.models import seq2seq
+    from cor_asv_ann_tpu_torch.ops import lstm_scan_kernel as lsk
+    from cor_asv_ann_tpu_torch.utils.data import lines_to_index_batch
+    report = {}
+    for compute in ('float32', 'bfloat16'):
+        s2s = load_model(dev, compute)
+        params = s2s._infer_params()
+        enc = seq2seq.ensure_onehot(torch.from_numpy(lines_to_index_batch(
+            s2s.mapping, list(lines))).to(dev), s2s.config, params)
+        route = 'auto' if compute == 'float32' else 'on'
+        got = {}
+        for mode in (route, 'off', 'auto'):
+            seq2seq._FUSED_SCAN = mode
+            try:
+                before = lsk.lstm_scan_fwd.launches
+                with torch.no_grad():
+                    attended, states, u = seq2seq.encode(params, s2s.config,
+                                                         enc)
+                torch.cuda.synchronize()
+            finally:
+                seq2seq._FUSED_SCAN = 'auto'
+            got[mode] = ([attended, u] + [t for hc in states for t in hc],
+                         lsk.lstm_scan_fwd.launches - before)
+        (on, launched), (off, none) = got[route], got['off']
+        auto = got['auto'][1]
+        check(launched == 3 and none == 0
+              and auto == (3 if compute == 'float32' else 0),
+              '%s serving encoder: %d K4 launches on the route, %d off it, '
+              '%d under auto' % (compute, launched, none, auto))
+        names = ['attended', 'u'] + ['%s%d' % (v, n) for n in
+                                      range(len(on) // 2 - 1) for v in 'hc']
+        errs = {k: (g.float() - w.float()).abs().max().item()
+                for k, g, w in zip(names, on, off)}
+        err = max(errs.values())
+        check(all(bool(torch.isfinite(g).all()) for g in on),
+              '%s serving encoder on K4: not finite' % compute)
+        if compute == 'float32':
+            for g, w in zip(on, off):
+                torch.testing.assert_close(g, w, **scan_tolerance(
+                    torch, torch.float32))
+        report[compute] = dict(max_abs_diff=err, by_tensor=errs,
+                               k4_launches=launched, shape=list(enc.shape))
+        print('serving_scan %-8s B=%d T=%d: encode on K4 (%d launches, '
+              '_FUSED_SCAN=%s; %d under auto) against _FUSED_SCAN=off, '
+              'max|diff| over attended, u, states = %.3g (%s)'
+              % (compute, enc.shape[0], enc.shape[1], launched, route, auto,
+                 err, ', '.join('%s %.3g' % kv for kv in errs.items())))
+    return report
+
+
 def _scan_inputs(torch, dev, dt, T, B, N, seed):
     gen = torch.Generator().manual_seed(seed)
     zx = torch.randn(T, B, 4 * N, generator=gen)
@@ -681,7 +739,7 @@ def long_line_steps(torch, dev, data, batch, launches_of):
 def masked_route_gaps(torch, dev, s2s, batch, flag):
     """A mask_padding model's loss and gradients on one batch with the
     kernels that `flag` of models/seq2seq.py switches on ('auto': the
-    training scans on K4/K5 for `_FUSED_TRAIN_SCAN`, the top layer on
+    training scans on K4/K5 for `_FUSED_SCAN`, the top layer on
     K6/K7 for `_TEACHER_KERNEL`) against the same step with them 'off'
     (the step-by-step masked scan; the dense top layer under autograd),
     float32, with the same dropout draws: the loss's relative gap and the
@@ -785,7 +843,7 @@ def train_path(torch, dev, tmp, launches_of):
                 # step on the masked plain scan, and the masked top layer
                 # on K6/K7 against the same step on the dense body
                 for flag, key, what in (
-                        ('_FUSED_TRAIN_SCAN', 'route_off', 'K4/K5 against '
+                        ('_FUSED_SCAN', 'route_off', 'K4/K5 against '
                          'the masked plain scan'),
                         ('_TEACHER_KERNEL', 'teacher_off', 'K6/K7 against '
                          'the masked dense top layer')):
@@ -2337,6 +2395,8 @@ def main():
     k7_errs = phase_k7(torch, dev)
     # K3 against its plain version
     k3_errs = phase_k3(torch, dev)
+    # the serving encoder on K4 against the step-by-step scan
+    serving_scan_report = serving_scan(torch, dev, corpus)
 
     # 4 + 5. the main paths, each with every launch count set to 0 just
     # before it and read just after it
@@ -2359,12 +2419,15 @@ def main():
     main_path(torch, dev, goldens, corpus)
     launches = {k: wrappers[k].launches for k in ('decode_loop',
                                                   'lstm_step')}
+    # the serving encoder's K4 launches, added to training's below
+    serving_k4 = lsk.lstm_scan_fwd.launches
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         train_report = train_path(
             torch, dev, tmp,
             lambda: {k: wrappers[k].launches for k in train_kernels})
     launches.update({k: wrappers[k].launches for k in train_kernels})
+    launches['lstm_scan_fwd'] += serving_k4
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         beam_report = beam_path(
@@ -2378,20 +2441,29 @@ def main():
             + dsk.fused_decode_step_indexed.launches
 
     launches['decode_step'] = k3_launches()
+    launches['lstm_scan_fwd'] += lsk.lstm_scan_fwd.launches
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         processor_report = processor_path(torch, tmp, k3_launches)
-    check(all(fn.launches == 0 for key, fn in wrappers.items()
-              if not key.startswith('decode_step')),
-          'the processor launched another kernel than K3')
+    # the processor serves through the beam: K3 in bf16, and K4 for its
+    # encoder's scans in either dtype
+    check(lsk.lstm_scan_fwd.launches > 0
+          and all(fn.launches == 0 for key, fn in wrappers.items()
+                  if not key.startswith('decode_step')
+                  and key != 'lstm_scan_fwd'),
+          'the processor launched another kernel than K3 and K4, or no '
+          'K4: %s' % {k: fn.launches for k, fn in wrappers.items()})
     launches['decode_step'] += k3_launches()
+    launches['lstm_scan_fwd'] += lsk.lstm_scan_fwd.launches
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         tuning_report = tuning_path(torch, dev, corpus, tmp)
     launches['decode_loop'] += dlk.decode_loop.launches
+    launches['lstm_scan_fwd'] += lsk.lstm_scan_fwd.launches
     reset_counts()
     long_beam_report = long_beam_path(torch, dev, corpus, smi, k3_launches)
     launches['decode_step'] += long_beam_report['main_path_k3_launches']
+    launches['lstm_scan_fwd'] += lsk.lstm_scan_fwd.launches
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         mesh_report = mesh_path(torch, dev, goldens, tmp)
@@ -2403,6 +2475,7 @@ def main():
     print('main-path launches: %s' % launches)
     check(all(n > 0 for n in launches.values()),
           'a kernel of the main paths was not launched: %s' % launches)
+    print('serving_scan: %s' % json.dumps(serving_scan_report))
     print('train_path: %s' % json.dumps(train_report))
     print('beam_path: %s' % json.dumps(beam_report))
     print('processor_path: %s' % json.dumps(processor_report))

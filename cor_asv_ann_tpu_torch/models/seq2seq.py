@@ -5,8 +5,9 @@ lib/seq2seq.py:190-489): a stacked (bi)LSTM encoder, a forward LSTM
 decoder with local additive attention on top, and a weight-tied softmax
 output. Functions take (params, config, tensors) and run on the device
 the tensors live on. Training uses the same decoder teacher-forced
-(`forward_teacher`): its LSTM scans, masked or not, go through the
-whole-sequence scan kernels (`_train_scan`), its top attention layer,
+(`forward_teacher`). Every LSTM scan, masked or not, in serving as in
+training, goes through the whole-sequence scan kernels where they take
+it (`_sequence_scan`); training's top attention layer,
 masked or not, through the fused teacher kernels (ops/teacher_kernel.py),
 else the windowed scan with the hand-written backward
 (models/teacher_scan.py) or the dense or windowed per-step body under
@@ -35,14 +36,21 @@ from .teacher_scan import teacher_top_scan
 # batch-shared attention window width for greedy decode (see
 # ops/attention.py:attention_step_shared)
 SHARED_WINDOW = 32
-# Whole-sequence LSTM scan kernels for the TRAINING path
-# (ops/lstm_scan_kernel.py): 'auto' takes them for CUDA tensors at the
-# shapes they support (fused_scan_supported), 'on' forces
-# `lstm_scan_fused` (its plain versions on CPU tensors, for tests), 'off'
-# keeps the step-by-step `lstm_scan`. Training-only, like in the JAX
-# package, so the serving decode paths stay byte-stable against the
-# golden corpus.
-_FUSED_TRAIN_SCAN = 'auto'
+# Whole-sequence LSTM scan kernels K4/K5 (ops/lstm_scan_kernel.py) for
+# every sequence scan, serving's encoder as training's: 'auto' takes them
+# for CUDA tensors at the shapes they support (fused_scan_supported), in
+# float32, and in bfloat16 where a gradient flows through the scan; 'on'
+# forces `lstm_scan_fused` (its plain versions on CPU tensors, for
+# tests), 'off' keeps the step-by-step `lstm_scan`. The JAX package
+# scans through its kernels in training only. K4 computes the same
+# recurrence with another rounding (its own logistic, another summation
+# order), so served float32 results are held to the golden corpus by its
+# texts and score tolerances, not by byte equality. Served bfloat16
+# scans keep `lstm_scan`: K4's bfloat16 logistic rounds every
+# intermediate, and on the card the K3 beam over such an encoder fell
+# below its agreement bar with the float32 goldens. CPU tensors keep
+# `lstm_scan` under 'auto'.
+_FUSED_SCAN = 'auto'
 # Teacher-forced attention mode: 'auto' uses the windowed carry (aw,
 # astart through `_windowed_attention`: only the +-window_width visible
 # rows are read, identical to the dense masked energies since everything
@@ -77,18 +85,28 @@ _TEACHER_KERNEL = 'auto'
 _TRAIN_MESH = None
 
 
-def _train_scan(xs, w, h0=None, c0=None, reverse=False, mask=None):
-    """lstm_scan for training-path sequence recurrences: the fused
+def _sequence_scan(xs, w, h0=None, c0=None, reverse=False, mask=None,
+                   counted=False):
+    """lstm_scan for every sequence recurrence of the model: the fused
     whole-sequence scan where it is supported, else the plain scan; a
     padding mask (mask_padding models' encoders) goes along either way.
     Under a training mesh the kernels launch on this rank's rows, and the
-    mask is theirs."""
-    if _FUSED_TRAIN_SCAN != 'off':
-        if _FUSED_TRAIN_SCAN == 'on' or (
-                xs.device.type == 'cuda'
-                and fused_scan_supported(w, xs.shape[0], mesh=_TRAIN_MESH)):
-            return lstm_scan_fused(xs, w, h0, c0, reverse=reverse, mask=mask)
-    return lstm_scan(xs, w, h0, c0, reverse=reverse, mask=mask)
+    mask is theirs. `counted` adds the scan to the tracer's
+    ``decoders.encoder_scans``, and to ``decoders.encoder_kernel_scans``
+    where the fused scan serves it."""
+    rk = w['recurrent_kernel']
+    fused = _FUSED_SCAN == 'on' or (
+        _FUSED_SCAN != 'off' and xs.device.type == 'cuda'
+        and (rk.dtype == torch.float32
+             or (torch.is_grad_enabled()
+                 and (xs.requires_grad or rk.requires_grad)))
+        and fused_scan_supported(w, xs.shape[0], mesh=_TRAIN_MESH))
+    if counted:
+        profiling.count('decoders.encoder_scans')
+        if fused:
+            profiling.count('decoders.encoder_kernel_scans')
+    scan = lstm_scan_fused if fused else lstm_scan
+    return scan(xs, w, h0, c0, reverse=reverse, mask=mask)
 
 
 def _dropout_keep(shape, rate, generator, device, batch_dim=None):
@@ -150,24 +168,30 @@ def encode(params, config: Seq2SeqConfig, enc_input, dropout_rng=None,
 
     Returns (attended (B,T,A), [(h,c)] per decoder layer, u (B,T,W)).
     Without ``mask_padding``, padding runs through the recurrence
-    unmasked, like the reference (seq2seq.py:1026-1043). With `train`
-    the scans go through `_train_scan`, and a ``torch.Generator`` as
-    `dropout_rng` switches variational dropout on.
+    unmasked, like the reference (seq2seq.py:1026-1043). The scans go
+    through `_sequence_scan`; with `train` a ``torch.Generator`` as
+    `dropout_rng` switches variational dropout on. Without `train` the
+    tracer counts the scans (``decoders.encoder_scans``) and those the
+    fused scan serves (``decoders.encoder_kernel_scans``).
     """
     depth, deep = config.depth, config.deep_bidirectional_encoder
     mask = enc_input.ne(0).any(dim=2) if config.mask_padding else None
     out = mm(enc_input, params['char_embedding']['kernel'])
     states = []
-    scan = _train_scan if train else lstm_scan
+
+    def scan(xs, w, reverse=False):
+        return _sequence_scan(xs, w, reverse=reverse, mask=mask,
+                              counted=not train)
+
     for n in range(depth):
         lw = params['encoder'][n]
         if n == 0 or deep:
             inp = out if n == 0 else cross_sum(out)
-            fw_out, _fh, _fc = scan(inp, lw['fw'], mask=mask)
-            bw_out, h, c = scan(inp, lw['bw'], reverse=True, mask=mask)
+            fw_out, _fh, _fc = scan(inp, lw['fw'])
+            bw_out, h, c = scan(inp, lw['bw'], reverse=True)
             out = torch.cat([fw_out, bw_out], dim=-1)
         else:
-            out2, h, c = scan(out, lw, mask=mask)
+            out2, h, c = scan(out, lw)
             if config.residual_connections and n >= 2:
                 out = out2 + out
             else:
@@ -320,10 +344,9 @@ def _decode_teacher(params, config, dec_input, states, attended, u,
     out = mm(dec_input, params['char_embedding']['kernel'])
     dropping = train and config.dropout > 0 and dropout_rng is not None
     # plain lower decoder layers: full scan with hoisted input projection
-    scan = _train_scan if train else lstm_scan
     for n in range(depth - 1):
         h0, c0 = states[n]
-        out2, _, _ = scan(out, params['decoder'][n], h0, c0)
+        out2, _, _ = _sequence_scan(out, params['decoder'][n], h0, c0)
         if config.residual_connections and n > 0:
             out = out2 + out
         else:

@@ -352,7 +352,11 @@ def lstm_scan_fused(xs, w, h0=None, c0=None, reverse=False, mask=None,
     shard under ``shard_map``. Here xs, h0 and c0 already are the rank's
     rows and `w` the full weights (`models.train.train_step` gathers
     them over 'model' and sums their gradients over 'data' once a step),
-    so the launch is the same with or without it."""
+    so the launch is the same with or without it.
+
+    Where no input needs a gradient (serving) it calls K4 outside
+    `LstmScan`, saves nothing for a backward and zeroes the outputs of
+    masked steps in place."""
     rk = w['recurrent_kernel']
     B = xs.shape[0]
     N, dt = rk.shape[0], rk.dtype
@@ -363,6 +367,13 @@ def lstm_scan_fused(xs, w, h0=None, c0=None, reverse=False, mask=None,
     zx = mm(xs, w['kernel']) + w['bias']
     if mask is not None:
         mask = mask.t().to(torch.uint8).contiguous()
-    hs, hT, cT = LstmScan.apply(zx.transpose(0, 1).contiguous(),
-                                rk.contiguous(), h, c, bool(reverse), mask)
+    args = (zx.transpose(0, 1).contiguous(), rk.contiguous(), h, c,
+            bool(reverse), mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:4]):
+        hs, hT, cT = LstmScan.apply(*args)
+    else:
+        hbuf, _, hT, cT = _scan_fwd(*args)
+        hs = _views(hbuf, reverse)[0]
+        if mask is not None:
+            hs.masked_fill_(mask[..., None] == 0, 0)
     return hs.transpose(0, 1), hT, cT

@@ -614,7 +614,7 @@ def test_masked_train_step_goes_through_the_scan_kernels(dev):
     init = init_params(config, seed=2)
     got = {}
     for mode in ('auto', 'off'):
-        seq2seq._FUSED_TRAIN_SCAN = mode
+        seq2seq._FUSED_SCAN = mode
         try:
             params = tree_map(lambda t: t.requires_grad_(),
                               params_from_numpy(init, dev))
@@ -632,7 +632,7 @@ def test_masked_train_step_goes_through_the_scan_kernels(dev):
             launched = (lsk.lstm_scan_fwd.launches - before[0],
                         lsk.lstm_scan_bwd.launches - before[1])
         finally:
-            seq2seq._FUSED_TRAIN_SCAN = 'auto'
+            seq2seq._FUSED_SCAN = 'auto'
         change = [t.detach() - f for t, f in zip(tree_leaves(params), first)]
         got[mode] = float(loss.detach()), grads, change, launched
     on, off = got['auto'], got['off']
@@ -671,6 +671,90 @@ def test_lstm_scan_kernel_refuses_what_it_cannot_take(dev):
     assert not lsk.fused_scan_supported({'recurrent_kernel': R})
     with pytest.raises(RuntimeError):
         lsk.lstm_scan_fwd(zx, R, h0, c0)
+
+
+def _golden_decodes():
+    with open(os.path.join(_ROOT, 'tests', 'golden_decodes.json')) as f:
+        return json.load(f)
+
+
+def _serving_encode(s2s, config, lines, mode):
+    """encode(train=False) of `lines` on the card with `_FUSED_SCAN =
+    mode`, and the K4 launches it made."""
+    params = s2s._infer_params()
+    enc = ensure_onehot(torch.from_numpy(
+        lines_to_index_batch(s2s.mapping, lines)).cuda(), config, params)
+    seq2seq._FUSED_SCAN = mode
+    try:
+        before = lsk.lstm_scan_fwd.launches
+        with torch.no_grad():
+            out = encode(params, config, enc)
+        torch.cuda.synchronize()
+    finally:
+        seq2seq._FUSED_SCAN = 'auto'
+    attended, states, u = out
+    return ([attended, u] + [t for hc in states for t in hc],
+            lsk.lstm_scan_fwd.launches - before)
+
+
+@pytest.mark.parametrize('mask_padding', [True, False],
+                         ids=['masked', 'unmasked'])
+def test_serving_encoder_goes_through_k4(dev, mask_padding):
+    """The f32 flagship's serving encoder: three K4 launches (the two
+    directions of layer 1, layer 2), none with the route off, and
+    attended, states and u at the scan kernels' f32 bar."""
+    s2s = _graph_server('flagship', 'float32')
+    config = dataclasses.replace(s2s.config, mask_padding=mask_padding)
+    lines = _golden_decodes()['inputs']
+    on, launched = _serving_encode(s2s, config, lines, 'auto')
+    off, none = _serving_encode(s2s, config, lines, 'off')
+    assert launched == 3 and none == 0
+    for g, w in zip(on, off):
+        assert g.dtype == w.dtype == torch.float32
+        torch.testing.assert_close(g, w, **SCAN_TOL[torch.float32])
+
+
+def test_bf16_serving_encoder_keeps_the_plain_scan(dev):
+    """In bfloat16 the serving encoder keeps `lstm_scan` (no K4 launch),
+    while a bfloat16 scan that a gradient flows through, as in training,
+    takes K4."""
+    s2s = _graph_server('flagship', 'bfloat16')
+    _, launched = _serving_encode(s2s, s2s.config,
+                                  _golden_decodes()['inputs'], 'auto')
+    assert launched == 0
+    w = {k: v.detach().clone().requires_grad_()
+         for k, v in s2s._infer_params()['encoder'][1].items()}
+    xs = torch.randn(4, 9, w['kernel'].shape[0], device=dev,
+                     dtype=torch.bfloat16)
+    before = lsk.lstm_scan_fwd.launches
+    out, _, _ = seq2seq._sequence_scan(xs, w)
+    assert out.grad_fn is not None
+    assert lsk.lstm_scan_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize('greedy', [True, False], ids=['greedy', 'beam'])
+def test_serving_on_k4_gives_the_golden_decodes(dev, greedy):
+    """golden_decodes.json's inputs through correct_lines with the
+    encoder on K4: the golden texts byte for byte, scores within 2e-3 of
+    the greedy goldens and of the beam's with the route off."""
+    golden = _golden_decodes()
+    s2s = _graph_server('flagship', 'float32')
+    got = {}
+    for mode in ('auto', 'off'):
+        seq2seq._FUSED_SCAN = mode
+        try:
+            before = lsk.lstm_scan_fwd.launches
+            out, _, scores, _ = s2s.correct_lines(
+                list(golden['inputs']), fast=greedy, greedy=greedy,
+                return_alignments=False)
+            got[mode] = out, scores, lsk.lstm_scan_fwd.launches - before
+        finally:
+            seq2seq._FUSED_SCAN = 'auto'
+    out, scores, launched = got['auto']
+    assert launched > 0 and got['off'][2] == 0
+    assert out == golden['greedy' if greedy else 'beamed']
+    want = golden['greedy_scores'] if greedy else got['off'][1]
+    np.testing.assert_allclose(scores, want, rtol=0, atol=2e-3)
 
 
 def _teacher_inputs(dev, dtype, B, Td, T, W, A, with_masks, seed=0):

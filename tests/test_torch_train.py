@@ -4,9 +4,10 @@ against the JAX package.
 A tiny d2/w16 model in float32, parameters from the JAX package's
 ``init_params`` through ``params_from_numpy``; the same numpy batches go
 through both packages. Dropout is 0 wherever the two are compared (their
-random streams cannot agree). With ``_FUSED_TRAIN_SCAN = 'on'`` the JAX
-side runs its Pallas scan kernels in interpret mode and the port runs the
-plain versions of its CUDA kernels through ``LstmScan``.
+random streams cannot agree). With the JAX package's
+``_FUSED_TRAIN_SCAN`` and the port's ``_FUSED_SCAN`` 'on' the JAX side
+runs its Pallas scan kernels in interpret mode for training and the port
+runs the plain versions of its CUDA kernels through ``LstmScan``.
 
 Tolerances: forward 1e-5 (float32 sums in another order); loss and
 gradients rtol 1e-4 / atol 1e-5 (the bar of tests/test_fused_scan.py::
@@ -66,7 +67,7 @@ def fused_scan(monkeypatch):
     flag is read when a function is traced)."""
     def set_mode(mode):
         monkeypatch.setattr(JS, '_FUSED_TRAIN_SCAN', mode)
-        monkeypatch.setattr(PS, '_FUSED_TRAIN_SCAN', mode)
+        monkeypatch.setattr(PS, '_FUSED_SCAN', mode)
         jax.clear_caches()
     yield set_mode
     jax.clear_caches()

@@ -165,15 +165,15 @@ def run_train_step(name, mesh=None, compute=None, steps=1):
     opt = T.make_optimizer(leaves)
     grads = keep_first_step_grads(opt, leaves)
     gen = torch.Generator().manual_seed(0)
-    old = S._FUSED_TRAIN_SCAN, S._TEACHER_KERNEL
+    old = S._FUSED_SCAN, S._TEACHER_KERNEL
     if flags:
-        S._FUSED_TRAIN_SCAN = S._TEACHER_KERNEL = flags
+        S._FUSED_SCAN = S._TEACHER_KERNEL = flags
     try:
         losses = [float(T.train_step(leaves, opt, config, *batch, gen,
                                      compute_dtype=compute, mesh=mesh))
                   for _ in range(steps)]
     finally:
-        S._FUSED_TRAIN_SCAN, S._TEACHER_KERNEL = old
+        S._FUSED_SCAN, S._TEACHER_KERNEL = old
     return (losses, full_tree(leaves, config, mesh),
             full_tree(tree_unflatten(params, grads), config, mesh))
 

@@ -168,7 +168,7 @@ def profile_training(torch, out_dir):
                                             'cuda'))
         opt = T.make_optimizer(params)
         gen = torch.Generator().manual_seed(0)
-        seq2seq._FUSED_TRAIN_SCAN = scan
+        seq2seq._FUSED_SCAN = scan
         seq2seq._TEACHER_KERNEL = teacher
         try:
             profile(torch,
@@ -176,7 +176,7 @@ def profile_training(torch, out_dir):
                                          compute_dtype=compute),
                     256, name, out_dir)
         finally:
-            seq2seq._FUSED_TRAIN_SCAN = 'auto'
+            seq2seq._FUSED_SCAN = 'auto'
             seq2seq._TEACHER_KERNEL = 'auto'
 
 
